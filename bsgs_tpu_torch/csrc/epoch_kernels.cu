@@ -1,0 +1,276 @@
+// The giant-step epoch and table-generation kernels for Hopper (sm_90a).
+//
+// Hand-written counterparts of the six Pallas kernels of
+// bsgs_tpu/ops/epoch_kernel.py. Each is one thread per chain or per lane,
+// over field.cuh; the Python wrappers (bsgs_tpu_torch/ops/epoch_kernel.py)
+// check shapes, allocate every output and launch on PyTorch's current
+// stream. Each C entry returns cudaGetLastError() so a refused launch
+// raises in the wrapper.
+//
+// What bounds them: a 256-bit modular multiply is about 206 32-bit integer
+// instructions (136 for the mad.lo/mad.hi product rows, the rest for the
+// two folds and the canonical step), and an element moves 64 bytes per
+// (16, M) int32 limb plane it reads or writes. The card does about 5
+// integer instructions per byte of memory traffic, so epoch_bwd (6
+// multiplies per pair) and fermat (294 per element) are bound by
+// instructions, and epoch_fwd, mont_fwd, mont_bwd and add_const (1-4
+// multiplies against 2-5 planes) by bytes. Every value stays in registers;
+// each input plane is read once and each output plane written once.
+//
+// Chains and lanes: a chain is C elements spaced W apart inside a block of
+// C*W columns, as in the Pallas kernels (the TPU walked a block's C chunks
+// of W lanes in order). Here thread g owns lane g % W of one block, so a
+// warp reads 32 neighbouring columns of each limb row: every load and
+// store is coalesced. The chain length C is the wrapper's choice: shorter
+// chains mean more threads in flight per SM.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "field.cuh"
+
+using bsgs::Fe;
+
+namespace {
+
+constexpr int kBlock = 128;
+
+inline unsigned grid_for(long long threads) {
+  return (unsigned)((threads + kBlock - 1) / kBlock);
+}
+
+// Replaces bsgs_tpu/ops/epoch_kernel.py:_fwd_kernel. Thread g = (t, jb,
+// lane) walks one chain: d = Ox - Mx (0 -> 1), the exclusive running
+// products into pre, the chain total into tot. Bound: bytes (the pre plane
+// it writes, 64 B per pair, against one multiply per pair).
+__global__ void __launch_bounds__(kBlock)
+    epoch_fwd_kernel(const int32_t* __restrict__ ox,
+                     const int32_t* __restrict__ cx, int32_t* __restrict__ pre,
+                     int32_t* __restrict__ tot, int T, int N, int C, int W) {
+  const int nb = N / (C * W);
+  const long long threads = (long long)T * nb * W;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= threads) return;
+  const int t = (int)(g / ((long long)nb * W));
+  const int r = (int)(g - (long long)t * nb * W);
+  const int jb = r / W;
+  const long long base = (long long)jb * C * W + (r - jb * W);
+  const long long tn = (long long)T * N;
+  const Fe mx = bsgs::fe_load(cx, T, t);
+  const Fe one = bsgs::fe_one();
+  Fe run = one;
+  for (int c = 0; c < C; ++c) {
+    const long long col = base + (long long)c * W;
+    Fe d = bsgs::sub_mod(bsgs::fe_load(ox, N, col), mx);
+    d = bsgs::fe_select(bsgs::fe_is_zero(d), one, d);
+    bsgs::fe_store(pre, tn, (long long)t * N + col, run);
+    run = bsgs::mul_mod(run, d);
+  }
+  bsgs::fe_store(tot, threads, g, run);
+}
+
+// Replaces bsgs_tpu/ops/epoch_kernel.py:_bwd_kernel. Thread g walks the
+// chain of epoch_fwd_kernel's thread g backwards from its inverted total:
+// each pair's 1/d, both landing X's (M + O and M - O share it), their
+// probe keys and the exact flag. Bound: instructions (6 multiplies per
+// pair).
+__global__ void __launch_bounds__(kBlock)
+    epoch_bwd_kernel(const int32_t* __restrict__ ox,
+                     const int32_t* __restrict__ oy,
+                     const int32_t* __restrict__ cx,
+                     const int32_t* __restrict__ cy,
+                     const int32_t* __restrict__ pre,
+                     const int32_t* __restrict__ itot,
+                     int32_t* __restrict__ out, int T, int N, int C, int W,
+                     int htsz) {
+  const int nb = N / (C * W);
+  const long long threads = (long long)T * nb * W;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= threads) return;
+  const int t = (int)(g / ((long long)nb * W));
+  const int r = (int)(g - (long long)t * nb * W);
+  const int jb = r / W;
+  const long long base = (long long)jb * C * W + (r - jb * W);
+  const long long tn = (long long)T * N;
+  const Fe mx = bsgs::fe_load(cx, T, t);
+  const Fe my = bsgs::fe_load(cy, T, t);
+  const Fe one = bsgs::fe_one();
+  Fe run = bsgs::fe_load(itot, threads, g);
+  for (int i = 0; i < C; ++i) {
+    const long long col = base + (long long)(C - 1 - i) * W;
+    const long long pc = (long long)t * N + col;
+    const Fe oxv = bsgs::fe_load(ox, N, col);
+    const Fe oyv = bsgs::fe_load(oy, N, col);
+    Fe d = bsgs::sub_mod(oxv, mx);
+    const bool exact = bsgs::fe_is_zero(d);
+    d = bsgs::fe_select(exact, one, d);
+    const Fe inv = bsgs::mul_mod(run, bsgs::fe_load(pre, tn, pc));
+    run = bsgs::mul_mod(run, d);
+    // x(M + O): lambda = (Oy - My) / (Ox - Mx)
+    const Fe lp = bsgs::mul_mod(bsgs::sub_mod(oyv, my), inv);
+    const Fe xp =
+        bsgs::sub_mod(bsgs::sub_mod(bsgs::sqr_mod(lp), mx), oxv);
+    // x(M - O): only the square of -(Oy + My) / (Ox - Mx) enters
+    const Fe lm = bsgs::mul_mod(bsgs::add_mod(oyv, my), inv);
+    const Fe xm =
+        bsgs::sub_mod(bsgs::sub_mod(bsgs::sqr_mod(lm), mx), oxv);
+    uint32_t bp, dp, bm, dm;
+    bsgs::probe_key(xp, htsz, bp, dp);
+    bsgs::probe_key(xm, htsz, bm, dm);
+    out[0 * tn + pc] = (int32_t)bp;
+    out[1 * tn + pc] = (int32_t)dp;
+    out[2 * tn + pc] = (int32_t)bm;
+    out[3 * tn + pc] = (int32_t)dm;
+    out[4 * tn + pc] = exact ? 1 : 0;
+    out[5 * tn + pc] = 0;
+    out[6 * tn + pc] = 0;
+    out[7 * tn + pc] = 0;
+  }
+}
+
+// Replaces bsgs_tpu/ops/epoch_kernel.py:_mont_fwd_kernel: thread g walks
+// chain g (lane g % W of block g / W), writing the exclusive running
+// products of nonzero v and the chain total. Bound: bytes.
+__global__ void __launch_bounds__(kBlock)
+    mont_fwd_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ pre,
+                    int32_t* __restrict__ tot, int M, int C, int W) {
+  const long long threads = (long long)(M / (C * W)) * W;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= threads) return;
+  const long long b = g / W;
+  const long long base = b * C * W + (g - b * W);
+  Fe run = bsgs::fe_one();
+  for (int c = 0; c < C; ++c) {
+    const long long col = base + (long long)c * W;
+    bsgs::fe_store(pre, M, col, run);
+    run = bsgs::mul_mod(run, bsgs::fe_load(v, M, col));
+  }
+  bsgs::fe_store(tot, threads, g, run);
+}
+
+// Replaces bsgs_tpu/ops/epoch_kernel.py:_mont_bwd_kernel: thread g walks
+// chain g backwards; each inverse is the running inverse times the
+// element's exclusive prefix. Bound: bytes.
+__global__ void __launch_bounds__(kBlock)
+    mont_bwd_kernel(const int32_t* __restrict__ v,
+                    const int32_t* __restrict__ pre,
+                    const int32_t* __restrict__ itot,
+                    int32_t* __restrict__ out, int M, int C, int W) {
+  const long long threads = (long long)(M / (C * W)) * W;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= threads) return;
+  const long long b = g / W;
+  const long long base = b * C * W + (g - b * W);
+  Fe run = bsgs::fe_load(itot, threads, g);
+  for (int i = 0; i < C; ++i) {
+    const long long col = base + (long long)(C - 1 - i) * W;
+    bsgs::fe_store(out, M, col,
+                   bsgs::mul_mod(run, bsgs::fe_load(pre, M, col)));
+    run = bsgs::mul_mod(run, bsgs::fe_load(v, M, col));
+  }
+}
+
+// Replaces bsgs_tpu/ops/epoch_kernel.py:_fermat_kernel: one thread per
+// element, a^(p-2) by the addition chain. Bound: instructions (294
+// dependent multiplies); at the 2,048 totals an epoch leaves, one warp
+// per SM, so the multiplies' latency shows.
+__global__ void __launch_bounds__(kBlock)
+    fermat_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+                  int M) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= M) return;
+  bsgs::fe_store(out, M, g, bsgs::inv_mod(bsgs::fe_load(x, M, g)));
+}
+
+// Replaces bsgs_tpu/ops/epoch_kernel.py:_addc_kernel: one thread per lane,
+// (x, y) + C given inv = 1/den (den = Cx - x, or 2y on the doubling lanes
+// x == Cx), and the 64-bit prefix of x3 as (hi, lo) rows. Bound: bytes
+// (five planes against four multiplies).
+__global__ void __launch_bounds__(kBlock)
+    add_const_kernel(const int32_t* __restrict__ xs,
+                     const int32_t* __restrict__ ys,
+                     const int32_t* __restrict__ inv,
+                     const int32_t* __restrict__ cx,
+                     const int32_t* __restrict__ cy, int32_t* __restrict__ x3,
+                     int32_t* __restrict__ y3, int32_t* __restrict__ prefix,
+                     int M) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= M) return;
+  const Fe cxv = bsgs::fe_load(cx, 1, 0);
+  const Fe cyv = bsgs::fe_load(cy, 1, 0);
+  const Fe x = bsgs::fe_load(xs, M, g);
+  const Fe y = bsgs::fe_load(ys, M, g);
+  const bool dbl = bsgs::fe_is_zero(bsgs::sub_mod(cxv, x));
+  const Fe x2 = bsgs::sqr_mod(x);
+  const Fe num = dbl ? bsgs::add_mod(bsgs::add_mod(x2, x2), x2)
+                     : bsgs::sub_mod(cyv, y);
+  const Fe lam = bsgs::mul_mod(num, bsgs::fe_load(inv, M, g));
+  // on doubling lanes cx == x, so x + cx == 2x either way
+  const Fe xr = bsgs::sub_mod(bsgs::sqr_mod(lam), bsgs::add_mod(x, cxv));
+  const Fe yr = bsgs::sub_mod(bsgs::mul_mod(lam, bsgs::sub_mod(x, xr)), y);
+  bsgs::fe_store(x3, M, g, xr);
+  bsgs::fe_store(y3, M, g, yr);
+  prefix[g] = (int32_t)xr.v[1];
+  prefix[(long long)M + g] = (int32_t)xr.v[0];
+}
+
+}  // namespace
+
+extern "C" {
+
+int bsgs_epoch_fwd(const void* ox, const void* cx, void* pre, void* tot,
+                   int T, int N, int C, int W, void* stream) {
+  const long long threads = (long long)T * (N / (C * W)) * W;
+  epoch_fwd_kernel<<<grid_for(threads), kBlock, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)ox, (const int32_t*)cx, (int32_t*)pre, (int32_t*)tot,
+      T, N, C, W);
+  return (int)cudaGetLastError();
+}
+
+int bsgs_epoch_bwd(const void* ox, const void* oy, const void* cx,
+                   const void* cy, const void* pre, const void* itot,
+                   void* out, int T, int N, int C, int W, int htsz,
+                   void* stream) {
+  const long long threads = (long long)T * (N / (C * W)) * W;
+  epoch_bwd_kernel<<<grid_for(threads), kBlock, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)ox, (const int32_t*)oy, (const int32_t*)cx,
+      (const int32_t*)cy, (const int32_t*)pre, (const int32_t*)itot,
+      (int32_t*)out, T, N, C, W, htsz);
+  return (int)cudaGetLastError();
+}
+
+int bsgs_mont_fwd(const void* v, void* pre, void* tot, int M, int C, int W,
+                  void* stream) {
+  const long long threads = (long long)(M / (C * W)) * W;
+  mont_fwd_kernel<<<grid_for(threads), kBlock, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)v, (int32_t*)pre, (int32_t*)tot, M, C, W);
+  return (int)cudaGetLastError();
+}
+
+int bsgs_mont_bwd(const void* v, const void* pre, const void* itot,
+                  void* out, int M, int C, int W, void* stream) {
+  const long long threads = (long long)(M / (C * W)) * W;
+  mont_bwd_kernel<<<grid_for(threads), kBlock, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)v, (const int32_t*)pre, (const int32_t*)itot,
+      (int32_t*)out, M, C, W);
+  return (int)cudaGetLastError();
+}
+
+int bsgs_fermat(const void* x, void* out, int M, void* stream) {
+  fermat_kernel<<<grid_for(M), kBlock, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (int32_t*)out, M);
+  return (int)cudaGetLastError();
+}
+
+int bsgs_add_const(const void* xs, const void* ys, const void* inv,
+                   const void* cx, const void* cy, void* x3, void* y3,
+                   void* prefix, int M, void* stream) {
+  add_const_kernel<<<grid_for(M), kBlock, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)xs, (const int32_t*)ys, (const int32_t*)inv,
+      (const int32_t*)cx, (const int32_t*)cy, (int32_t*)x3, (int32_t*)y3,
+      (int32_t*)prefix, M);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,308 @@
+"""End-to-end BSGS solver orchestration (single device).
+
+Counterpart of the fused path of ``bsgs_tpu/models/solver.py``: build the
+baby table and the giant offsets on the device, scan the key range in
+epochs, verify every hit exactly on the host, and report the private key.
+
+The scan loop is pipelined: up to ``cfg.pipeline`` epochs are queued on
+the device before the oldest one's hit count is read back. Job centers are
+made on the host and copied from pinned memory without waiting; the
+``int(cnt)`` in ``_collect`` is the only point per epoch where the host
+waits for the device.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..ops import ec, epoch_kernel as EK, field as F
+from ..utils import ecpy
+from . import checker, giant, table as tbl
+
+# Device memory kept free beside the dense table for the scan's transients.
+MEMORY_RESERVE = 3 << 30
+
+
+@dataclasses.dataclass
+class SolverConfig:
+    """Geometry of the scan.
+
+    w: baby-table size (keys covered per giant landing = 2w = stride s).
+    htsz: bucket bits of the table (top bits of the 64-bit X prefix);
+          None = auto (table.pick_htsz for the window).
+    n_offsets: offsets per job; must split into chains of chunk_c*lanes_w.
+    jobs_per_epoch: centers per epoch.
+    pipeline: epochs in flight before the host reads one back.
+    epoch_phases: job groups computed and probed one after another inside
+          an epoch (bounds the key plane and gathered rows held at once).
+    chunk_c, lanes_w: chain layout of the epoch kernels (ops/epoch_kernel).
+    n_split: parts each probe stream is gathered in.
+    """
+
+    w: int
+    htsz: Optional[int] = None
+    n_offsets: int = 1 << 18
+    jobs_per_epoch: int = 16
+    window: int = tbl.DEVICE_WINDOW
+    hit_cap: int = 512
+    table_tile: int = 1 << 18
+    chunk_c: int = EK.CHUNK_C
+    lanes_w: int = EK.LANES_W
+    n_split: int = 8
+    pipeline: int = 3
+    epoch_phases: int = 4
+
+    def __post_init__(self):
+        if self.htsz is None:
+            self.htsz = tbl.pick_htsz(self.w, self.window)
+
+    @property
+    def stride(self) -> int:
+        return 2 * self.w
+
+    @property
+    def jobs_span(self) -> int:
+        """Giant indices covered per job."""
+        return 2 * self.n_offsets + 1
+
+    @property
+    def keys_per_epoch(self) -> int:
+        return self.jobs_span * self.jobs_per_epoch * self.stride
+
+
+class HitOverflow(RuntimeError):
+    """An epoch produced more hits than its fixed-capacity buffer; the
+    solve loop re-runs that epoch with a larger cap."""
+
+    def __init__(self, count: int):
+        super().__init__(f"hit buffer overflow ({count})")
+        self.count = count
+
+
+@dataclasses.dataclass
+class SolveResult:
+    key: Optional[int]
+    giant_steps: int
+    elapsed_s: float
+    epochs: int
+    hits_checked: int
+
+
+def check_table_fits(dense_bytes: int, mem_bytes: Optional[int] = None,
+                     device=None) -> None:
+    """Refuse a dense table beyond the device's memory less
+    MEMORY_RESERVE (total memory from torch.cuda.mem_get_info)."""
+    if mem_bytes is None:
+        mem_bytes = torch.cuda.mem_get_info(resolve_device(device))[1]
+    budget = mem_bytes - MEMORY_RESERVE
+    if dense_bytes > budget:
+        raise ValueError(
+            f"dense table ({dense_bytes / 2**30:.1f} GiB) exceeds the "
+            f"{budget / 2**30:.1f} GiB budget ({mem_bytes / 2**30:.0f} GiB "
+            f"device memory - {MEMORY_RESERVE / 2**30:.0f} GiB scan reserve)"
+        )
+
+
+def build_table(cfg: SolverConfig, device=None) -> tbl.BabyTable:
+    """The on-device table build for a config."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        check_table_fits((1 << cfg.htsz) * cfg.window * 4, device=dev)
+    return tbl.build_baby_table_device(cfg.w, cfg.htsz, window=cfg.window,
+                                       tile=cfg.table_tile, device=dev)
+
+
+class Solver:
+    def __init__(self, cfg: SolverConfig,
+                 baby: Optional[tbl.BabyTable] = None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.baby = baby if baby is not None else build_table(cfg,
+                                                              self.device)
+        if self.baby.htsz != cfg.htsz:
+            cfg.htsz = self.baby.htsz
+        n = cfg.n_offsets
+        if n % (cfg.chunk_c * cfg.lanes_w):
+            raise ValueError(
+                f"n_offsets {n} is not a multiple of chunk_c*lanes_w "
+                f"({cfg.chunk_c}*{cfg.lanes_w})")
+        # Giant offsets O_j = j*S*G, j = 1..N, as planar (16, N) planes.
+        s_g = ecpy.mul(cfg.stride)
+        self.ox_pl, self.oy_pl = EK.fill_multiples_planar(
+            s_g, s_g, n, device=self.device)
+        # Epoch center stepping: centers advance by -(2N+1)*S*G.
+        self.center_step = ecpy.neg(ecpy.mul(cfg.jobs_span * cfg.stride))
+        self._verify_offsets()
+        phases = max(1, cfg.epoch_phases)
+        self._phases = phases if cfg.jobs_per_epoch % phases == 0 else 1
+
+    def _verify_offsets(self, checks: int = 4):
+        """Spot-verify random offsets against exact host EC: column j must
+        hold (j+1)*S*G bit for bit."""
+        cfg = self.cfg
+        rng = np.random.default_rng(0x61A27)
+        for j in {int(rng.integers(0, cfg.n_offsets)) for _ in range(checks)}:
+            expect = ecpy.mul((j + 1) * cfg.stride)
+            got = (
+                F.from_limbs(self.ox_pl[:, j].cpu().numpy()),
+                F.from_limbs(self.oy_pl[:, j].cpu().numpy()),
+            )
+            if got != expect:
+                raise ValueError(
+                    f"giant offset buffer corrupt at j={j}: {got[0]:#x} "
+                    f"!= {expect[0]:#x}"
+                )
+
+    # -- center generation -------------------------------------------------
+    def epoch_centers(self, q0, first_job: int, n_jobs: int):
+        """Host arrays (x (T,16), y (T,16), inf (T,)) of job-center points
+        M_g = Q0 - c_g*S*G for g = first_job .. first_job + n_jobs - 1.
+
+        If the FIRST center is the point at infinity the row starts from
+        the next center and lane 0 is marked infinite."""
+        cfg = self.cfg
+        c0 = (first_job * cfg.jobs_span + cfg.n_offsets) * cfg.stride
+        m0 = ecpy.sub(q0, ecpy.mul(c0))
+        if m0 is None:
+            cx, cy, cinf = ec.fill_multiples(
+                self.center_step, self.center_step, max(1, n_jobs - 1))
+            pad = np.zeros((1, F.NLIMBS), np.uint32)
+            cx = np.concatenate([pad, cx])[:n_jobs]
+            cy = np.concatenate([pad, cy])[:n_jobs]
+            cinf = np.concatenate([[True], cinf])[:n_jobs]
+            return cx, cy, cinf
+        return ec.fill_multiples(m0, self.center_step, n_jobs)
+
+    def _centers_on_device(self, q0, first_job: int):
+        """Epoch centers as device tensors, copied from pinned memory
+        without making the host wait."""
+        cx, cy, cinf = self.epoch_centers(q0, first_job,
+                                          self.cfg.jobs_per_epoch)
+        packed = np.concatenate(
+            [cx.astype(np.int32), cy.astype(np.int32),
+             cinf.astype(np.int32)[:, None]], axis=1)
+        host = torch.from_numpy(packed)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        dev = host.to(self.device, non_blocking=True)
+        nl = F.NLIMBS
+        return dev[:, :nl], dev[:, nl:2 * nl], dev[:, -1] != 0
+
+    def _total_epochs(self, pk: int, pke: int) -> int:
+        cfg = self.cfg
+        m_max = (pke - pk) // cfg.stride + 1
+        total_jobs = (m_max + cfg.jobs_span) // cfg.jobs_span + 1
+        return -(-total_jobs // cfg.jobs_per_epoch)
+
+    # -- epoch dispatch ------------------------------------------------------
+    def _dispatch(self, q0, epoch: int, hit_cap: Optional[int] = None):
+        """Queue one epoch on the device; returns a record (epoch,
+        first_job, idxs, cnt, giant_steps) with idxs/cnt still on the
+        device."""
+        cfg = self.cfg
+        first_job = epoch * cfg.jobs_per_epoch
+        cx, cy, cinf = self._centers_on_device(q0, first_job)
+        idxs, cnt, gs = giant.run_epoch_fused(
+            cx, cy, cinf, self.ox_pl, self.oy_pl, self.baby.dense,
+            htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
+            hit_cap=hit_cap or cfg.hit_cap, n_split=cfg.n_split,
+            phases=self._phases,
+        )
+        return epoch, first_job, idxs, cnt, gs
+
+    def _redispatch(self, q0, epoch: int, cap: int):
+        """Overflow recovery: re-run one epoch with a larger hit buffer."""
+        return self._dispatch(q0, epoch, hit_cap=cap)
+
+    def _collect(self, pub, pk: int, rec):
+        """Read one queued epoch's results back and DECODE any hits (no
+        verification). Returns (hit records, giant_steps); raises
+        HitOverflow when the device buffer was too small."""
+        cfg = self.cfg
+        _, first_job, idxs, cnt, gs = rec
+        cnt = int(cnt)
+        if cnt > idxs.shape[-1]:
+            raise HitOverflow(cnt)
+        batch = []
+        if cnt:
+            ctx = checker.HitContext(
+                q=pub, pk=pk, s=cfg.stride, n=cfg.n_offsets,
+                job_base=first_job,
+            )
+            recs = idxs.cpu().numpy()
+            recs = recs[recs != giant.FILL]
+            batch = [
+                (ctx,) + giant.decode_flat_phased(
+                    int(flat), cfg.jobs_per_epoch, cfg.n_offsets,
+                    self._phases,
+                )
+                for flat in recs
+            ]
+        return batch, gs
+
+    def _verify(self, pending, pk: int, pke: int):
+        """Batched exact verification of hit records. Returns (key or
+        None, hits_checked)."""
+        keys, hits_checked = checker.verify_hits_batched(pending, self.baby)
+        for k in keys:
+            if pk <= k <= pke:
+                return k, hits_checked
+        return None, hits_checked
+
+    # -- main loop ----------------------------------------------------------
+    def solve(self, pub: tuple, pk: int, pke: int,
+              max_epochs: Optional[int] = None) -> SolveResult:
+        """Find k in [pk, pke] with k*G == pub (None key if exhausted).
+
+        max_epochs caps the epochs dispatched (a timed scan of part of a
+        range)."""
+        cfg = self.cfg
+        if pub is None or not ecpy.is_on_curve(pub):
+            raise ValueError("pubkey is not a point on secp256k1")
+        # k0 == 0 means Q == pk*G
+        if ecpy.mul(pk) == pub:
+            return SolveResult(pk, 0, 0.0, 0, 0)
+        q0 = ecpy.sub(pub, ecpy.mul(pk))
+        total_epochs = self._total_epochs(pk, pke)
+        if max_epochs is not None:
+            total_epochs = min(total_epochs, max_epochs)
+
+        steps = 0
+        hits_checked = 0
+        t0 = time.time()
+        epoch = 0
+        drained = 0
+        depth = max(1, cfg.pipeline)
+        inflight = collections.deque()
+        while epoch < total_epochs or inflight:
+            while epoch < total_epochs and len(inflight) < depth:
+                inflight.append(self._dispatch(q0, epoch))
+                epoch += 1
+            rec = inflight.popleft()
+            e = rec[0]
+            while True:
+                try:
+                    batch, gs = self._collect(pub, pk, rec)
+                    break
+                except HitOverflow as ov:
+                    # re-run this epoch with a buffer that fits
+                    cap = 1 << max(ov.count.bit_length() + 1, 8)
+                    rec = self._redispatch(q0, e, cap)
+            steps += gs
+            drained += 1
+            if batch:
+                key, hc = self._verify(batch, pk, pke)
+                hits_checked += hc
+                if key is not None:
+                    return SolveResult(
+                        key, steps, time.time() - t0, drained, hits_checked
+                    )
+        return SolveResult(None, steps, time.time() - t0, drained,
+                           hits_checked)

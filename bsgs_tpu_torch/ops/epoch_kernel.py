@@ -1,0 +1,380 @@
+"""The epoch and table-generation kernels, and the functions built on them.
+
+Counterpart of ``bsgs_tpu/ops/epoch_kernel.py``. Its six Pallas kernels
+are CUDA kernels here (``csrc/epoch_kernels.cu``); each has a wrapper below
+and, beside it, a plain PyTorch version of the same function:
+
+=============  ====================================  ======================
+wrapper        replaces (bsgs_tpu/ops/epoch_kernel)  computes
+=============  ====================================  ======================
+epoch_fwd      _fwd_kernel                           d = Ox - Mx prefixes
+epoch_bwd      _bwd_kernel                           (8, T*N) key plane
+mont_fwd       _mont_fwd_kernel                      Montgomery prefixes
+mont_bwd       _mont_bwd_kernel                      Montgomery inverses
+fermat         _fermat_kernel                        a^(p-2) per element
+add_const      _addc_kernel                          (x, y) + C per lane
+=============  ====================================  ======================
+
+Dispatch: a CUDA tensor launches the kernel (a failed build or launch
+raises), a CPU tensor runs the plain version; nothing else is accepted and
+nothing falls back. Each launch adds one to ``LAUNCHES[name]``.
+
+Planes are ``(16, M)`` int32 tensors of 16-bit limbs; key planes and
+prefixes are int32 tensors holding the uint32 bits of the JAX package's.
+
+A chain is ``chunk_c`` elements spaced ``lanes_w`` apart inside a block of
+``chunk_c * lanes_w`` columns, as in the Pallas kernels. The chain layout
+changes the intermediate ``pre``/``tot`` planes, never a final inverse,
+key plane or point: those are canonical, so every chain length gives the
+same bits. The TPU's 64 x 256 chose long chains for VMEM; on the card one
+thread walks a chain, and ``CHUNK_C``/``LANES_W`` keep enough threads in
+flight (T*N/CHUNK_C = 131,072 threads per phase at the bench geometry).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import resolve_device
+from ..utils import ecpy
+from . import _cuda, ec, field as F, planar as P
+
+KERNELS = ("epoch_fwd", "epoch_bwd", "mont_fwd", "mont_bwd", "fermat",
+           "add_const")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+CHUNK_C = 8
+LANES_W = 256
+FERMAT_MAX = 1 << 13  # widest batch inverted directly by the Fermat kernel
+FILL_SEED = 1024  # host-exact points that start a planar doubling fill
+
+_I32 = torch.int32
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(*ts: torch.Tensor) -> bool:
+    """True for CUDA tensors (the kernel), False for CPU ones (the plain
+    version); anything else raises."""
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+        if t.dtype != _I32 or t.dim() != 2:
+            raise ValueError(f"expected 2-D int32 planes, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if dev.type == "cuda":
+        for t in ts:
+            if not t.is_contiguous():
+                raise ValueError("kernel inputs must be contiguous")
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _chains(m: int, chunk_c: int, lanes_w: int) -> int:
+    if chunk_c < 1 or lanes_w < 1 or m <= 0 or m % (chunk_c * lanes_w):
+        raise ValueError(f"{m} columns do not split into chains of "
+                         f"{chunk_c} x {lanes_w}")
+    return m // (chunk_c * lanes_w)
+
+
+def _ones(n: int, device) -> torch.Tensor:
+    """(16, n) int32 plane of the field element 1."""
+    v = torch.zeros((F.NLIMBS, n), dtype=_I32, device=device)
+    v[0] = 1
+    return v
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: forward pass of the epoch (replaces _fwd_kernel)
+
+
+def epoch_fwd_plain(ox, cx, *, chunk_c: int, lanes_w: int):
+    t_jobs, n = cx.shape[1], ox.shape[1]
+    nb = _chains(n, chunk_c, lanes_w)
+    C, W = chunk_c, lanes_w
+    o = ox.long().view(F.NLIMBS, 1, nb, C, W)
+    m = cx.long().view(F.NLIMBS, t_jobs, 1, 1)
+    run = _ones(t_jobs * nb * W, ox.device).long().view(
+        F.NLIMBS, t_jobs, nb, W)
+    one = P.const_like(1, run)
+    pre = torch.empty((F.NLIMBS, t_jobs, nb, C, W), dtype=torch.int64,
+                      device=ox.device)
+    for c in range(C):
+        d = P.sub_mod(o[:, :, :, c, :], m)
+        d = P.select(P.is_zero(d), one, d)
+        pre[:, :, :, c, :] = run
+        run = P.mul_mod(run, d)
+    return (pre.reshape(F.NLIMBS, t_jobs * n).to(_I32),
+            run.reshape(F.NLIMBS, t_jobs * nb * W).to(_I32))
+
+
+def epoch_fwd(ox, cx, *, chunk_c: int, lanes_w: int):
+    """ox (16, N), centers cx (16, T) -> (pre (16, T*N), tot (16, T*nb*W)):
+    d = Ox - Mx (0 -> 1) per pair, pair order t*N + j; pre holds each
+    chain's exclusive running products, tot its total."""
+    if not _on_cuda(ox, cx):
+        return epoch_fwd_plain(ox, cx, chunk_c=chunk_c, lanes_w=lanes_w)
+    t_jobs, n = cx.shape[1], ox.shape[1]
+    nb = _chains(n, chunk_c, lanes_w)
+    pre = torch.empty((F.NLIMBS, t_jobs * n), dtype=_I32, device=ox.device)
+    tot = torch.empty((F.NLIMBS, t_jobs * nb * lanes_w), dtype=_I32,
+                      device=ox.device)
+    _cuda.launch("bsgs_epoch_fwd", ox, cx, pre, tot, t_jobs, n, chunk_c,
+                 lanes_w)
+    LAUNCHES["epoch_fwd"] += 1
+    return pre, tot
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: backward pass of the epoch (replaces _bwd_kernel)
+
+
+def epoch_bwd_plain(ox, oy, cx, cy, pre, itot, *, htsz: int, chunk_c: int,
+                    lanes_w: int):
+    t_jobs, n = cx.shape[1], ox.shape[1]
+    nb = _chains(n, chunk_c, lanes_w)
+    C, W = chunk_c, lanes_w
+    o_x = ox.long().view(F.NLIMBS, 1, nb, C, W)
+    o_y = oy.long().view(F.NLIMBS, 1, nb, C, W)
+    mx = cx.long().view(F.NLIMBS, t_jobs, 1, 1)
+    my = cy.long().view(F.NLIMBS, t_jobs, 1, 1)
+    pr = pre.long().view(F.NLIMBS, t_jobs, nb, C, W)
+    run = itot.long().view(F.NLIMBS, t_jobs, nb, W)
+    one = P.const_like(1, run)
+    out = torch.zeros((8, t_jobs, nb, C, W), dtype=torch.int64,
+                      device=ox.device)
+    for c in reversed(range(C)):
+        oxc, oyc = o_x[:, :, :, c, :], o_y[:, :, :, c, :]
+        d = P.sub_mod(oxc, mx)
+        exact = P.is_zero(d)
+        d = P.select(exact, one, d)
+        inv = P.mul_mod(run, pr[:, :, :, c, :])
+        run = P.mul_mod(run, d)
+        lam_p = P.mul_mod(P.sub_mod(oyc, my), inv)
+        xp = P.sub_mod(P.sub_mod(P.sqr_mod(lam_p), mx), oxc)
+        lam_m = P.mul_mod(P.add_mod(oyc, my), inv)
+        xm = P.sub_mod(P.sub_mod(P.sqr_mod(lam_m), mx), oxc)
+        bp, dp = P.bucket_disc(*P.x_prefix64(xp), htsz)
+        bm, dm = P.bucket_disc(*P.x_prefix64(xm), htsz)
+        for row, v in enumerate((bp, dp, bm, dm, exact.long())):
+            out[row, :, :, c, :] = v[0]
+    return P.u32_bits(out.reshape(8, t_jobs * n))
+
+
+def epoch_bwd(ox, oy, cx, cy, pre, itot, *, htsz: int, chunk_c: int,
+              lanes_w: int):
+    """The backward walk from the inverted chain totals: per pair the
+    landing keys of x(M + O) and x(M - O) and the exact flag (Ox == Mx).
+    Returns the (8, T*N) key plane: rows bucket+, disc+, bucket-, disc-,
+    exact, then three zero rows."""
+    if not _on_cuda(ox, oy, cx, cy, pre, itot):
+        return epoch_bwd_plain(ox, oy, cx, cy, pre, itot, htsz=htsz,
+                               chunk_c=chunk_c, lanes_w=lanes_w)
+    if not 1 <= htsz <= 31:
+        raise ValueError(f"htsz {htsz} outside [1, 31]")
+    t_jobs, n = cx.shape[1], ox.shape[1]
+    _chains(n, chunk_c, lanes_w)
+    out = torch.empty((8, t_jobs * n), dtype=_I32, device=ox.device)
+    _cuda.launch("bsgs_epoch_bwd", ox, oy, cx, cy, pre, itot, out, t_jobs,
+                 n, chunk_c, lanes_w, htsz)
+    LAUNCHES["epoch_bwd"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernels 3-5: planar batch inversion (replace _mont_fwd_kernel,
+# _mont_bwd_kernel, _fermat_kernel)
+
+
+def mont_fwd_plain(v, *, chunk_c: int, lanes_w: int):
+    m = v.shape[1]
+    blocks = _chains(m, chunk_c, lanes_w)
+    vv = v.long().view(F.NLIMBS, blocks, chunk_c, lanes_w)
+    run = _ones(blocks * lanes_w, v.device).long().view(
+        F.NLIMBS, blocks, lanes_w)
+    pre = torch.empty_like(vv)
+    for c in range(chunk_c):
+        pre[:, :, c, :] = run
+        run = P.mul_mod(run, vv[:, :, c, :])
+    return (pre.reshape(F.NLIMBS, m).to(_I32),
+            run.reshape(F.NLIMBS, blocks * lanes_w).to(_I32))
+
+
+def mont_fwd(v, *, chunk_c: int, lanes_w: int):
+    """Nonzero v (16, m) -> (pre (16, m), tot (16, blocks*W)): exclusive
+    running products along each chain and the chain totals."""
+    if not _on_cuda(v):
+        return mont_fwd_plain(v, chunk_c=chunk_c, lanes_w=lanes_w)
+    m = v.shape[1]
+    blocks = _chains(m, chunk_c, lanes_w)
+    pre = torch.empty_like(v)
+    tot = torch.empty((F.NLIMBS, blocks * lanes_w), dtype=_I32,
+                      device=v.device)
+    _cuda.launch("bsgs_mont_fwd", v, pre, tot, m, chunk_c, lanes_w)
+    LAUNCHES["mont_fwd"] += 1
+    return pre, tot
+
+
+def mont_bwd_plain(v, pre, itot, *, chunk_c: int, lanes_w: int):
+    m = v.shape[1]
+    blocks = _chains(m, chunk_c, lanes_w)
+    vv = v.long().view(F.NLIMBS, blocks, chunk_c, lanes_w)
+    pr = pre.long().view(F.NLIMBS, blocks, chunk_c, lanes_w)
+    run = itot.long().view(F.NLIMBS, blocks, lanes_w)
+    out = torch.empty_like(vv)
+    for c in reversed(range(chunk_c)):
+        out[:, :, c, :] = P.mul_mod(run, pr[:, :, c, :])
+        run = P.mul_mod(run, vv[:, :, c, :])
+    return out.reshape(F.NLIMBS, m).to(_I32)
+
+
+def mont_bwd(v, pre, itot, *, chunk_c: int, lanes_w: int):
+    """Each element's inverse from the inverted chain totals itot."""
+    if not _on_cuda(v, pre, itot):
+        return mont_bwd_plain(v, pre, itot, chunk_c=chunk_c, lanes_w=lanes_w)
+    m = v.shape[1]
+    _chains(m, chunk_c, lanes_w)
+    out = torch.empty_like(v)
+    _cuda.launch("bsgs_mont_bwd", v, pre, itot, out, m, chunk_c, lanes_w)
+    LAUNCHES["mont_bwd"] += 1
+    return out
+
+
+def fermat_plain(x):
+    return P.inv_mod_chain(x.long()).to(_I32)
+
+
+def fermat(x):
+    """Elementwise a^(p-2) of a (16, m) plane (0 maps to 0)."""
+    if not _on_cuda(x):
+        return fermat_plain(x)
+    if x.shape[1] == 0:
+        return torch.empty_like(x)
+    out = torch.empty_like(x)
+    _cuda.launch("bsgs_fermat", x, out, x.shape[1])
+    LAUNCHES["fermat"] += 1
+    return out
+
+
+def batch_inv_planar(v, *, chunk_c: int = CHUNK_C, lanes_w: int = LANES_W):
+    """Elementwise inverse of a planar (16, m) batch of NONZERO values: one
+    Montgomery fold level per recursion (chains of chunk_c), recursing on
+    the chain totals until at most FERMAT_MAX remain, which the Fermat
+    kernel inverts directly. Pads with ones to a multiple of C*W, as
+    bsgs_tpu's batch_inv_planar does."""
+    m = v.shape[1]
+    C, W = chunk_c, lanes_w
+    if m <= FERMAT_MAX:
+        return fermat(v)
+    pad = (-m) % (C * W)
+    if pad:
+        vp = torch.cat([v, _ones(pad, v.device)], dim=1)
+        return batch_inv_planar(vp, chunk_c=C, lanes_w=W)[:, :m]
+    pre, tot = mont_fwd(v, chunk_c=C, lanes_w=W)
+    itot = batch_inv_planar(tot, chunk_c=C, lanes_w=W)
+    return mont_bwd(v, pre, itot, chunk_c=C, lanes_w=W)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: add a common point (replaces _addc_kernel)
+
+
+def add_const_plain(xs, ys, inv, cx, cy):
+    x, y, iv = xs.long(), ys.long(), inv.long()
+    cxl, cyl = cx.long(), cy.long()
+    exact = P.is_zero(P.sub_mod(cxl, x))
+    x2 = P.sqr_mod(x)
+    num = P.select(exact, P.add_mod(P.add_mod(x2, x2), x2),
+                   P.sub_mod(cyl, y))
+    lam = P.mul_mod(num, iv)
+    x3 = P.sub_mod(P.sqr_mod(lam), P.add_mod(x, cxl))
+    y3 = P.sub_mod(P.mul_mod(lam, P.sub_mod(x, x3)), y)
+    hi, lo = P.x_prefix64(x3)
+    return x3.to(_I32), y3.to(_I32), P.u32_bits(torch.cat([hi, lo]))
+
+
+def add_const(xs, ys, inv, cx, cy):
+    """(xs, ys) + C lane-wise given inv = 1/den (den = Cx - x, or 2y on the
+    doubling lanes x == Cx). cx, cy are (16, 1) columns. Returns (x3, y3,
+    prefix (2, m)) with prefix rows (hi32, lo32) of x3's low 64 bits."""
+    if not _on_cuda(xs, ys, inv, cx, cy):
+        return add_const_plain(xs, ys, inv, cx, cy)
+    m = xs.shape[1]
+    if cx.shape != (F.NLIMBS, 1) or cy.shape != (F.NLIMBS, 1):
+        raise ValueError("cx, cy must be (16, 1) columns")
+    x3, y3 = torch.empty_like(xs), torch.empty_like(ys)
+    prefix = torch.empty((2, m), dtype=_I32, device=xs.device)
+    _cuda.launch("bsgs_add_const", xs, ys, inv, cx, cy, x3, y3, prefix, m)
+    LAUNCHES["add_const"] += 1
+    return x3, y3, prefix
+
+
+def add_const_planar(xs, ys, cx_col, cy_col):
+    """Planar (16, m) batch + one common point C with one shared batch
+    inversion. Lanes with x == Cx are doublings (P == +C; generation never
+    meets P == -C). Returns (x3, y3, prefix_hi, prefix_lo)."""
+    x, cx = xs.long(), cx_col.long()
+    diff = P.sub_mod(cx, x)
+    den = P.select(P.is_zero(diff), P.add_mod(ys.long(), ys.long()), diff)
+    inv = batch_inv_planar(den.to(_I32))
+    x3, y3, prefix = add_const(xs, ys, inv, cx_col, cy_col)
+    return x3, y3, prefix[0], prefix[1]
+
+
+def fill_multiples_planar(base_pt, step_pt, n: int, device=None):
+    """Planar (16, n) x/y planes of [base + i*step, i = 0..n-1], n a power
+    of two: a host-exact seed row of min(FILL_SEED, n) points, then
+    doubling passes that add (have*step) to lanes [0, have) and place the
+    sums at [have, 2*have) in place. For n <= FILL_SEED the result is the
+    host row.
+
+    No lane may be the point at infinity."""
+    dev = resolve_device(device)
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"n must be a power of two (got {n})")
+    seed = min(FILL_SEED, n)
+    sx, sy, sinf = ec.host_row(base_pt, step_pt, seed)
+    if sinf.any():
+        raise ValueError("infinity lane in planar fill seed")
+    xs = torch.zeros((F.NLIMBS, n), dtype=_I32)
+    ys = torch.zeros((F.NLIMBS, n), dtype=_I32)
+    xs[:, :seed] = torch.from_numpy(sx.T.astype("int32"))
+    ys[:, :seed] = torch.from_numpy(sy.T.astype("int32"))
+    xs, ys = xs.to(dev), ys.to(dev)
+    have = seed
+    while have < n:
+        c_pt = ecpy.mul(have, step_pt)
+        cx = P.const_col(c_pt[0], dev).to(_I32)
+        cy = P.const_col(c_pt[1], dev).to(_I32)
+        x3, y3, _, _ = add_const_planar(
+            xs[:, :have].contiguous(), ys[:, :have].contiguous(), cx, cy)
+        xs[:, have : 2 * have] = x3
+        ys[:, have : 2 * have] = y3
+        have *= 2
+    return xs, ys
+
+
+# ---------------------------------------------------------------------------
+# The epoch's key plane
+
+
+def epoch_landing_keys(centers_x_pl, centers_y_pl, ox_pl, oy_pl, *,
+                       htsz: int, chunk_c: int = CHUNK_C,
+                       lanes_w: int = LANES_W):
+    """All probe keys of one epoch: T centers x N offsets.
+
+    Inputs are planar: centers (16, T), offsets (16, N) with
+    N % (chunk_c * lanes_w) == 0. Returns the (8, T*N) key plane (rows:
+    bucket+, disc+, bucket-, disc-, exact; pair order t*N + j), the same
+    bits as bsgs_tpu's epoch_landing_keys."""
+    pre, tot = epoch_fwd(ox_pl, centers_x_pl, chunk_c=chunk_c,
+                         lanes_w=lanes_w)
+    itot = batch_inv_planar(tot, chunk_c=chunk_c, lanes_w=lanes_w)
+    return epoch_bwd(ox_pl, oy_pl, centers_x_pl, centers_y_pl, pre, itot,
+                     htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w)

@@ -1,0 +1,242 @@
+"""The port's solver end to end on the CPU, on a bsgs_tpu table carried
+across by convert.py: planted keys through every hit code, exhaustion
+counts equal to the JAX solver's, overflow redispatch; and the guards that
+keep the port free of JAX and off the CPU unless asked."""
+
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from bsgs_tpu.models import solver as JS, table as JT
+from bsgs_tpu_torch import convert
+from bsgs_tpu_torch.models import solver as S
+from bsgs_tpu_torch.utils import ecpy
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "bsgs_tpu_torch"
+
+# tests/test_solver.py's geometry; chains of 2 x 4 split the 8 offsets
+GEOM = dict(w=256, htsz=6, n_offsets=8, jobs_per_epoch=4, window=16,
+            table_tile=64)
+
+
+def _carry(jt, device="cpu"):
+    return convert.baby_table(
+        w=jt.w, htsz=jt.htsz, window=jt.window, offsets=jt.offsets,
+        disc_sorted=jt.disc_sorted, pos_sorted=jt.pos_sorted,
+        dense=np.asarray(jt.dense), sorted_pre=jt.sorted_pre, device=device)
+
+
+@pytest.fixture(scope="module")
+def jax_table():
+    return JT.build_baby_table(256, 6, window=16, tile=64)
+
+
+@pytest.fixture(scope="module")
+def solver(jax_table):
+    cfg = S.SolverConfig(chunk_c=2, lanes_w=4, epoch_phases=2, **GEOM)
+    s = S.Solver(cfg, baby=_carry(jax_table), device="cpu")
+    codes = []
+    collect = s._collect
+
+    def recording(pub, pk, rec):
+        batch, gs = collect(pub, pk, rec)
+        codes.extend(r[1] for r in batch)
+        return batch, gs
+
+    s._collect = recording
+    s.codes = codes
+    return s
+
+
+def _solve(s, k, pk, pke):
+    s.codes.clear()
+    res = s.solve(ecpy.mul(k), pk, pke)
+    assert res.key == k, f"expected {k}, got {res.key}"
+    return set(s.codes)
+
+
+def test_offsets_match_host(solver):
+    for j in (0, 3, 7):
+        pt = ecpy.mul((j + 1) * solver.cfg.stride)
+        got = convert.u32(solver.ox_pl)[:, j]
+        assert sum(int(v) << (16 * i) for i, v in enumerate(got)) == pt[0]
+
+
+def test_offset_spot_verify_catches_corruption(solver):
+    ox = solver.ox_pl.clone()
+    try:
+        solver.ox_pl[:, :] = 12345
+        with pytest.raises(ValueError, match="corrupt"):
+            solver._verify_offsets(checks=16)
+    finally:
+        solver.ox_pl = ox
+
+
+def test_solve_both_branches_codes_1_and_2(solver):
+    cfg = solver.cfg
+    pk = 777_777
+    center0 = cfg.n_offsets * cfg.stride
+    assert 1 in _solve(solver, pk + center0 - 3 * cfg.stride - 5, pk,
+                       pk + (1 << 14))
+    assert 2 in _solve(solver, pk + center0 + 3 * cfg.stride + 5, pk,
+                       pk + (1 << 14))
+
+
+def test_solve_exact_giant_landing_code_4(solver):
+    pk = 999_999
+    assert 4 in _solve(solver, pk + 7 * solver.cfg.stride, pk,
+                       pk + (1 << 14))
+
+
+def test_solve_center_landing_code_5(solver):
+    cfg = solver.cfg
+    pk = 123_456
+    assert 5 in _solve(solver, pk + cfg.n_offsets * cfg.stride, pk,
+                       pk + (1 << 14))
+    c3 = (3 * cfg.jobs_span + cfg.n_offsets) * cfg.stride
+    assert 5 in _solve(solver, pk + c3, pk,
+                       pk + 4 * cfg.jobs_span * cfg.stride)
+
+
+def test_solve_range_edges_and_minus_r(solver):
+    pk, pke = 5_000_000, 5_000_000 + (1 << 15)
+    for k in (pk, pk + 1, pke):
+        _solve(solver, k, pk, pke)
+    _solve(solver, 31_337 + 5 * solver.cfg.stride - 13, 31_337,
+           31_337 + (1 << 14))
+
+
+def test_solve_in_a_later_epoch(solver):
+    pk = 1 << 20
+    k = pk + 2 * solver.cfg.keys_per_epoch + 4321
+    _solve(solver, k, pk, pk + 4 * solver.cfg.keys_per_epoch)
+
+
+def test_exhaustion_matches_jax_solver(solver, jax_table):
+    """giant_steps and epochs on an exhausted range equal the JAX
+    solver's on the same configuration (its non-fused CPU path)."""
+    jcfg = JS.SolverConfig(chunk=8, **GEOM)
+    js = JS.Solver(jcfg, baby=jax_table)
+    pk = 1 << 22
+    pub = ecpy.mul(pk + (1 << 18))
+    for pke in (pk + (1 << 13), pk + 3 * solver.cfg.keys_per_epoch + 7):
+        want = js.solve(pub, pk, pke)
+        got = solver.solve(pub, pk, pke)
+        assert got.key is None and want.key is None
+        assert (got.giant_steps, got.epochs) == (want.giant_steps,
+                                                 want.epochs)
+        assert got.giant_steps > 0
+
+
+def test_overflow_redispatch(jax_table):
+    """A table holding every landing prefix of the first epoch floods the
+    4-slot hit buffer; the epoch is re-run with a larger one."""
+    cfg = S.SolverConfig(chunk_c=2, lanes_w=4, epoch_phases=2, hit_cap=4,
+                         **dict(GEOM, w=64, jobs_per_epoch=2))
+    s0 = S.Solver(cfg, baby=_carry(JT.build_baby_table(64, 6, window=16,
+                                                       tile=32)),
+                  device="cpu")
+    pub = ecpy.mul(987654321)
+    pk = 1000
+    q0 = ecpy.sub(pub, ecpy.mul(pk))
+    cx, cy, cinf = s0.epoch_centers(q0, 0, cfg.jobs_per_epoch)
+    s_g = ecpy.mul(cfg.stride)
+    pres = set()
+    for t in range(cfg.jobs_per_epoch):
+        if cinf[t]:
+            continue
+        m_pt = tuple(sum(int(v) << (16 * i) for i, v in enumerate(row))
+                     for row in (cx[t], cy[t]))
+        for j in range(1, cfg.n_offsets + 1):
+            for pt in (ecpy.add(m_pt, ecpy.mul(j, s_g)),
+                       ecpy.sub(m_pt, ecpy.mul(j, s_g))):
+                if pt is not None:
+                    pres.add(pt[0] & ((1 << 64) - 1))
+    flood = JT.pack_table(np.array(sorted(pres), dtype=np.uint64), 6, 16)
+    s = S.Solver(cfg, baby=_carry(flood), device="cpu")
+    res = s.solve(pub, pk, pk + cfg.keys_per_epoch - 1, max_epochs=1)
+    assert res.key is None  # no real key: every hit verified and rejected
+    assert res.hits_checked > cfg.hit_cap
+
+
+def test_max_epochs_caps_the_scan(solver):
+    """A key in the third epoch is out of reach of a 2-epoch scan, which
+    dispatches and drains exactly 2 epochs."""
+    cfg = solver.cfg
+    pk = 2_000_000
+    k = pk + 2 * cfg.keys_per_epoch + 29
+    res = solver.solve(ecpy.mul(k), pk, pk + 4 * cfg.keys_per_epoch,
+                       max_epochs=2)
+    assert res.key is None and res.epochs == 2
+    assert res.giant_steps == 2 * (2 * cfg.n_offsets + 1) * cfg.jobs_per_epoch
+    assert solver.solve(ecpy.mul(k), pk, pk + 4 * cfg.keys_per_epoch,
+                        max_epochs=3).key == k
+
+
+# ---------------------------------------------------------------------------
+# Guards
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    mods = sorted(
+        "bsgs_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py"
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'bsgs_tpu' or m.startswith('bsgs_tpu.')]\n"
+        "print(len(sys.modules)); sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert len(mods) >= 10
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_jax_or_bsgs_tpu_imports(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "bsgs_tpu"), (path, name)
+
+
+def test_entry_points_refuse_the_cpu_by_default(jax_table):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    cfg = S.SolverConfig(**GEOM)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.Solver(cfg, baby=_carry(jax_table))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.build_table(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.offset_planes(np.zeros((16, 8), np.uint32),
+                              np.zeros((16, 8), np.uint32))
+
+
+def test_config_defaults_match_bench_geometry():
+    cfg = S.SolverConfig(w=1 << 26)
+    assert (cfg.htsz, cfg.n_offsets, cfg.jobs_per_epoch, cfg.epoch_phases,
+            cfg.pipeline, cfg.n_split, cfg.table_tile) == (
+        20, 1 << 18, 16, 4, 3, 8, 1 << 18)
+    assert dataclasses.replace(cfg, w=64).stride == 128
