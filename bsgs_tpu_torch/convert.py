@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .models.table import BabyTable
+from .models.table import BabyTable, make_strided_lookup
 
 
 def from_u32(a, device=None) -> torch.Tensor:
@@ -32,19 +32,41 @@ def u32(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().view(np.uint32)
 
 
-def baby_table(*, w: int, htsz: int, window: int, offsets, disc_sorted,
-               pos_sorted, dense, sorted_pre: Optional[np.ndarray] = None,
-               device=None) -> BabyTable:
-    """A bsgs_tpu BabyTable's arrays -> the port's BabyTable on device."""
+def _opt_u32(a, dev):
+    return None if a is None else from_u32(a, dev)
+
+
+def baby_table(*, w: int, htsz: int, window: int, offsets, dense,
+               disc_sorted=None, pos_sorted=None,
+               sorted_pre: Optional[np.ndarray] = None, pos_dense=None,
+               pos_lo=None, tile: int = 1 << 20, device=None) -> BabyTable:
+    """A bsgs_tpu BabyTable's arrays -> the port's BabyTable on device.
+
+    A packed or device-built table brings its CSR arrays (``disc_sorted``,
+    ``pos_sorted``, maybe ``sorted_pre``); a streamed one brings none, but
+    its position mirror ``pos_dense`` or its uint16 hint plane ``pos_lo``.
+    The hint's bits go into an int16 tensor and ``lookup_fn`` is rebuilt
+    over the port's own tensors (make_strided_lookup with ``tile``)."""
     dev = resolve_device(device)
+    dense_t = from_u32(dense, dev)
+    hint = lookup = None
+    if pos_lo is not None:
+        bits = np.ascontiguousarray(np.asarray(pos_lo))
+        if bits.dtype != np.uint16:
+            raise ValueError(f"expected a uint16 hint plane, got "
+                             f"{bits.dtype}")
+        hint = torch.from_numpy(bits.view(np.int16).copy()).to(dev)
+        lookup = make_strided_lookup(w, dense_t, hint, htsz, tile)
     return BabyTable(
         w=w, htsz=htsz, window=window,
         offsets=from_u32(offsets, dev),
-        disc_sorted=from_u32(disc_sorted, dev),
-        pos_sorted=from_u32(pos_sorted, dev),
-        dense=from_u32(dense, dev),
+        disc_sorted=_opt_u32(disc_sorted, dev),
+        pos_sorted=_opt_u32(pos_sorted, dev),
+        dense=dense_t,
         sorted_pre=None if sorted_pre is None
         else np.asarray(sorted_pre, dtype=np.uint64),
+        pos_dense=_opt_u32(pos_dense, dev),
+        pos_lo=hint, lookup_fn=lookup,
     )
 
 

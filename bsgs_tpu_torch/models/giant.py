@@ -3,8 +3,9 @@
 Counterpart of the fused path of ``bsgs_tpu/models/giant.py``. An epoch of
 T jobs (centers M_t) against the N device-resident offsets O_j = j*S*G runs
 as the epoch kernels (ops/epoch_kernel.epoch_landing_keys), the table probe
-(an index gather plus a compare) and a hit compaction that never makes the
-host wait for the device.
+(ops/probe_kernel.probe_rows: nine launches per epoch at 4 phases, two
+landing streams per phase and the centers) and a hit compaction that never
+makes the host wait for the device.
 
 Hit record: a flat index into the epoch's probe space. With phases = 1:
   [0, TN)        + branch: t = i // N, j = i % N + 1  -> m = c_t - j
@@ -77,14 +78,14 @@ def decode_flat_phased(flat: int, t_jobs: int, n: int, phases: int):
 def fused_epoch_probes(centers_x, centers_y, centers_inf, ox_pl, oy_pl,
                        dense, *, htsz: int, chunk_c: int = EK.CHUNK_C,
                        lanes_w: int = EK.LANES_W, hit_cap: int = 512,
-                       n_split: int = 8, phases: int = 1):
+                       phases: int = 1):
     """One epoch probed against the dense table. Centers are rows (T, 16)
     int32 and centers_inf (T,) bool; offsets are planar (16, N). Each
-    landing stream is gathered in n_split parts.
+    landing stream of a phase is one probe.
 
     ``phases`` splits the T jobs into groups whose key planes are computed
-    and probed one after another, so a phase's (8, T/phases*N) plane and
-    its gathered rows are the largest transients. The hit mask is
+    and probed one after another, so a phase's (8, T/phases*N) plane is
+    the largest transient. The hit mask is
     phase-major: decode with decode_flat_phased.
 
     Returns (hit flat-indices (hit_cap,) int32 FILL-padded, (1,) count).
@@ -101,8 +102,8 @@ def fused_epoch_probes(centers_x, centers_y, centers_inf, ox_pl, oy_pl,
             ox_pl, oy_pl, htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w,
         )
         exact = keys[4] != 0
-        found_p = T.probe_keys_split(keys[0], keys[1], dense, n_split=n_split)
-        found_m = T.probe_keys_split(keys[2], keys[3], dense, n_split=n_split)
+        found_p = T.probe_keys(keys[0], keys[1], dense)
+        found_m = T.probe_keys(keys[2], keys[3], dense)
         parts += [found_p & ~exact, found_m & ~exact, exact]
     hc_hi, hc_lo = PL.x_prefix64(centers_x.T.long())
     bc, dc = T.bucket_disc(hc_hi[0], hc_lo[0], htsz)
@@ -113,12 +114,11 @@ def fused_epoch_probes(centers_x, centers_y, centers_inf, ox_pl, oy_pl,
 def run_epoch_fused(centers_x, centers_y, centers_inf, ox_pl, oy_pl, dense,
                     *, htsz: int, chunk_c: int = EK.CHUNK_C,
                     lanes_w: int = EK.LANES_W, hit_cap: int = 512,
-                    n_split: int = 8, phases: int = 1):
+                    phases: int = 1):
     """The single-device epoch: fused_epoch_probes' hits, with the count as
     a 0-d tensor, and giant_steps, the probed landings (2 per offset and
     center pair plus each center)."""
     idxs, cnt = fused_epoch_probes(
         centers_x, centers_y, centers_inf, ox_pl, oy_pl, dense, htsz=htsz,
-        chunk_c=chunk_c, lanes_w=lanes_w, hit_cap=hit_cap, n_split=n_split,
-        phases=phases)
+        chunk_c=chunk_c, lanes_w=lanes_w, hit_cap=hit_cap, phases=phases)
     return idxs, cnt[0], (2 * ox_pl.shape[1] + 1) * centers_x.shape[0]

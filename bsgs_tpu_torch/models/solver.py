@@ -9,6 +9,11 @@ the device before the oldest one's hit count is read back. Job centers are
 made on the host and copied from pinned memory without waiting; the
 ``int(cnt)`` in ``_collect`` is the only point per epoch where the host
 waits for the device.
+
+Tables of w >= 2^28 are built streamed (table.build_baby_table_streamed).
+On a rescan table a position lookup regenerates part of the baby stream,
+so ``solve`` pools the hits of several drained epochs and verifies them in
+one batch (``VERIFY_DEFER_EPOCHS``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,10 @@ from . import checker, giant, table as tbl
 # Device memory kept free beside the dense table for the scan's transients.
 MEMORY_RESERVE = 3 << 30
 
+# Drained epochs over which solve pools the hits of a rescan table before
+# one batched verification.
+VERIFY_DEFER_EPOCHS = 64
+
 
 @dataclasses.dataclass
 class SolverConfig:
@@ -41,9 +50,8 @@ class SolverConfig:
     jobs_per_epoch: centers per epoch.
     pipeline: epochs in flight before the host reads one back.
     epoch_phases: job groups computed and probed one after another inside
-          an epoch (bounds the key plane and gathered rows held at once).
+          an epoch (bounds the key plane held at once).
     chunk_c, lanes_w: chain layout of the epoch kernels (ops/epoch_kernel).
-    n_split: parts each probe stream is gathered in.
     """
 
     w: int
@@ -55,7 +63,6 @@ class SolverConfig:
     table_tile: int = 1 << 18
     chunk_c: int = EK.CHUNK_C
     lanes_w: int = EK.LANES_W
-    n_split: int = 8
     pipeline: int = 3
     epoch_phases: int = 4
 
@@ -95,26 +102,40 @@ class SolveResult:
     hits_checked: int
 
 
-def check_table_fits(dense_bytes: int, mem_bytes: Optional[int] = None,
+def check_table_fits(table_bytes: int, mem_bytes: Optional[int] = None,
                      device=None) -> None:
-    """Refuse a dense table beyond the device's memory less
-    MEMORY_RESERVE (total memory from torch.cuda.mem_get_info)."""
+    """Refuse a table (the dense matrix and the planes kept beside it)
+    beyond the device's memory less MEMORY_RESERVE (total memory from
+    torch.cuda.mem_get_info)."""
     if mem_bytes is None:
         mem_bytes = torch.cuda.mem_get_info(resolve_device(device))[1]
     budget = mem_bytes - MEMORY_RESERVE
-    if dense_bytes > budget:
+    if table_bytes > budget:
         raise ValueError(
-            f"dense table ({dense_bytes / 2**30:.1f} GiB) exceeds the "
+            f"dense table ({table_bytes / 2**30:.1f} GiB) exceeds the "
             f"{budget / 2**30:.1f} GiB budget ({mem_bytes / 2**30:.0f} GiB "
             f"device memory - {MEMORY_RESERVE / 2**30:.0f} GiB scan reserve)"
         )
 
 
+def table_bytes_per_slot(cfg: SolverConfig) -> int:
+    """Device bytes per dense slot: 4 for the matrix, plus the 2-byte hint
+    of a streamed (rescan) table."""
+    return 4 if cfg.w < tbl.STREAMED_W else 6
+
+
 def build_table(cfg: SolverConfig, device=None) -> tbl.BabyTable:
-    """The on-device table build for a config."""
+    """The on-device table build for a config: one sort pack below
+    tbl.STREAMED_W, the streamed build with rescan positions from there
+    on."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        check_table_fits((1 << cfg.htsz) * cfg.window * 4, device=dev)
+        check_table_fits(
+            (1 << cfg.htsz) * cfg.window * table_bytes_per_slot(cfg),
+            device=dev)
+    if cfg.w >= tbl.STREAMED_W:
+        return tbl.build_baby_table_streamed(
+            cfg.w, cfg.htsz, window=cfg.window, device=dev)
     return tbl.build_baby_table_device(cfg.w, cfg.htsz, window=cfg.window,
                                        tile=cfg.table_tile, device=dev)
 
@@ -212,8 +233,7 @@ class Solver:
         idxs, cnt, gs = giant.run_epoch_fused(
             cx, cy, cinf, self.ox_pl, self.oy_pl, self.baby.dense,
             htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
-            hit_cap=hit_cap or cfg.hit_cap, n_split=cfg.n_split,
-            phases=self._phases,
+            hit_cap=hit_cap or cfg.hit_cap, phases=self._phases,
         )
         return epoch, first_job, idxs, cnt, gs
 
@@ -262,7 +282,12 @@ class Solver:
         """Find k in [pk, pke] with k*G == pub (None key if exhausted).
 
         max_epochs caps the epochs dispatched (a timed scan of part of a
-        range)."""
+        range).
+
+        On a rescan table (baby.lookup_fn) hits are pooled for up to
+        VERIFY_DEFER_EPOCHS drained epochs and verified in one batch;
+        a scan that ends with hits still pooled verifies them before it
+        returns. Other tables verify at every drain."""
         cfg = self.cfg
         if pub is None or not ecpy.is_on_curve(pub):
             raise ValueError("pubkey is not a point on secp256k1")
@@ -281,6 +306,9 @@ class Solver:
         drained = 0
         depth = max(1, cfg.pipeline)
         inflight = collections.deque()
+        defer = VERIFY_DEFER_EPOCHS if self.baby.lookup_fn is not None else 0
+        pending = []
+        first_pending = 0
         while epoch < total_epochs or inflight:
             while epoch < total_epochs and len(inflight) < depth:
                 inflight.append(self._dispatch(q0, epoch))
@@ -298,8 +326,14 @@ class Solver:
             steps += gs
             drained += 1
             if batch:
-                key, hc = self._verify(batch, pk, pke)
+                if not pending:
+                    first_pending = drained
+                pending.extend(batch)
+            scan_done = not (epoch < total_epochs or inflight)
+            if pending and (scan_done or drained - first_pending >= defer):
+                key, hc = self._verify(pending, pk, pke)
                 hits_checked += hc
+                pending = []
                 if key is not None:
                     return SolveResult(
                         key, steps, time.time() - t0, drained, hits_checked

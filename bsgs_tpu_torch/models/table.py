@@ -1,13 +1,22 @@
-"""Baby-step table: device build (planar generation + sort pack) and probe.
+"""Baby-step table: device builds (planar generation, then a sort pack or
+a streamed scatter), position lookups and the probe.
 
-Counterpart of the device path of ``bsgs_tpu/models/table.py``. Baby
+Counterpart of the device paths of ``bsgs_tpu/models/table.py``. Baby
 points 1G..wG come out of the planar doubling fill and the add-const
-kernel tile by tile; only their 64-bit X prefixes are kept. One stable
-sort of the key (bucket << 32 | disc) groups buckets and orders entries
-inside them, and a CSR table plus the dense (2^htsz, window) matrix fall
-out of a cumsum and a scatter, all on the device.
+kernel tile by tile; only their 64-bit X prefixes are kept.
 
-u32 arrays are int32 tensors holding the same bits (``DENSE_FILL`` is -1).
+- ``build_baby_table_device``: one stable sort of the key
+  (bucket << 32 | disc) groups buckets and orders entries inside them, and
+  a CSR table plus the dense (2^htsz, window) matrix fall out of a cumsum
+  and a scatter. Holds all w prefixes and the sort at once.
+- ``build_baby_table_streamed``: the big-w build. The dense matrix is
+  filled chunk by chunk in place, so the device holds the table plus one
+  chunk's transients. No CSR arrays: positions come from a slot-aligned
+  position plane (``mirror``) or from a 2-byte hint per slot and a
+  regeneration of 1/256 of the baby stream per verified hit (``rescan``).
+
+u32 arrays are int32 tensors holding the same bits (``DENSE_FILL`` is -1);
+the uint16 hint plane is an int16 tensor holding the same bits.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import epoch_kernel as EK, planar as PL
+from ..ops import epoch_kernel as EK, planar as PL, probe_kernel
 from ..utils import ecpy
 
 # Empty dense slots hold 0xFFFFFFFF. A probe whose own disc equals it
@@ -29,49 +38,85 @@ DENSE_FILL = -1
 # Row width of the dense matrix: 128 u32 slots, 512 B.
 DEVICE_WINDOW = 128
 
+# From this w on solver.build_table streams the build (the one-shot device
+# build holds all w prefixes and a w-long sort at once) and "auto"
+# positions mean rescan.
+STREAMED_W = 1 << 28
+
 
 @dataclasses.dataclass
 class BabyTable:
-    """Packed baby table: the sorted CSR view (offsets, per-entry disc and
-    baby position) the checker walks, and the dense (2^htsz, window) bucket
-    matrix the epoch probes. ``sorted_pre`` (host uint64, optional) holds
-    the full 64-bit prefixes of a host-built table for exact lookups."""
+    """Packed baby table: the dense (2^htsz, window) bucket matrix the
+    epoch probes, and what the checker needs to turn a matched prefix into
+    baby positions. Which of the optional fields are set depends on the
+    build:
+
+    - device build: the sorted CSR view (``offsets``, ``disc_sorted``,
+      ``pos_sorted``);
+    - host-built table carried across: the CSR view plus ``sorted_pre``
+      (host uint64), the full 64-bit prefixes for exact lookups;
+    - streamed build, ``mirror``: ``pos_dense``, the baby position of every
+      dense slot (0 = empty), on the table's device;
+    - streamed build, ``rescan``: ``pos_lo``, the 16-bit hint of every
+      dense slot (low byte: position & 0xFF; high byte: the 8 prefix bits
+      below the stored disc), and ``lookup_fn`` (make_strided_lookup)."""
 
     w: int
     htsz: int
     window: int
     offsets: torch.Tensor  # (2^htsz + 1,) int32 CSR bucket offsets
-    disc_sorted: torch.Tensor  # (w,) int32 bits: disc per sorted entry
-    pos_sorted: torch.Tensor  # (w,) int32: baby index 1..w per sorted entry
+    disc_sorted: Optional[torch.Tensor]  # (w,) int32 bits, sorted entries
+    pos_sorted: Optional[torch.Tensor]  # (w,) int32: baby index 1..w
     dense: torch.Tensor  # (2^htsz, window) int32 bits, DENSE_FILL-padded
     sorted_pre: Optional[np.ndarray] = None
+    pos_dense: Optional[torch.Tensor] = None  # (2^htsz, window) int32
+    lookup_fn: Optional[object] = None
+    pos_lo: Optional[torch.Tensor] = None  # (2^htsz, window) int16 bits
 
     def lookup_positions(self, x_int: int) -> list[int]:
         """All baby indices whose X prefix matches that of x_int: the full
-        64 bits when sorted_pre is kept, else the htsz+32 bits the packed
-        table stores (the checker verifies every candidate exactly)."""
+        64 bits with lookup_fn or sorted_pre, else the htsz+32 bits the
+        packed table stores (the checker verifies every candidate
+        exactly)."""
         pre = x_int & ((1 << 64) - 1)
+        if self.lookup_fn is not None:
+            return self.lookup_fn(pre)
         if self.sorted_pre is not None:
             p = np.uint64(pre)
             lo = int(np.searchsorted(self.sorted_pre, p, side="left"))
             hi = int(np.searchsorted(self.sorted_pre, p, side="right"))
             return [int(v) for v in self.pos_sorted[lo:hi].tolist()]
         bucket = pre >> (64 - self.htsz)
-        disc = (pre >> (32 - self.htsz)) & 0xFFFFFFFF
+        disc = np.uint32((pre >> (32 - self.htsz)) & 0xFFFFFFFF)
+        if self.pos_dense is not None:
+            # streamed mirror build: two row pulls, slot-aligned
+            d = self.dense[bucket].cpu().numpy().view(np.uint32)
+            p = self.pos_dense[bucket].cpu().numpy()
+            return [int(v) for v, dd in zip(p, d) if dd == disc and v != 0]
         lo, hi = (int(v) for v in self.offsets[bucket : bucket + 2].tolist())
         d = self.disc_sorted[lo:hi].cpu().numpy().view(np.uint32)
         p = self.pos_sorted[lo:hi].cpu().numpy()
-        return [int(v) for v, m in zip(p, d == np.uint32(disc)) if m]
+        return [int(v) for v, m in zip(p, d == disc) if m]
 
     def lookup_positions_batch(self, x_ints) -> dict:
-        """lookup_positions for many X values, keyed by the 64-bit prefix."""
+        """lookup_positions for many X values, keyed by the 64-bit prefix.
+        Each distinct prefix is resolved once; a rescan table's lookup
+        regenerates one residue class of the baby stream per surviving
+        candidate of each prefix."""
         pres = sorted({int(x) & ((1 << 64) - 1) for x in x_ints})
+        if not pres:
+            return {}
+        batch = getattr(self.lookup_fn, "batch", None)
+        if batch is not None:
+            return batch(pres)
         return {p: self.lookup_positions(p) for p in pres}
 
 
 @dataclasses.dataclass
 class TableStats:
-    """Build-quality summary: entries, bucket loads and duplicate keys."""
+    """Build-quality summary: entries, bucket loads and duplicate keys
+    (dup_pairs is None for a streamed table, which keeps no sorted disc
+    stream)."""
 
     entries: int
     buckets: int
@@ -79,24 +124,27 @@ class TableStats:
     mean_load: float
     empty_buckets: int
     window: int
-    dup_pairs: int
+    dup_pairs: Optional[int]
 
     def __str__(self):
+        dup = "n/a" if self.dup_pairs is None else str(self.dup_pairs)
         return (
             f"table: {self.entries} entries in 2^"
             f"{(self.buckets - 1).bit_length()} buckets, load "
             f"{self.mean_load:.1f} avg / {self.max_bucket} max "
             f"(window {self.window}), {self.empty_buckets} empty, "
-            f"{self.dup_pairs} duplicate keys"
+            f"{dup} duplicate keys"
         )
 
 
 def table_stats(t: BabyTable) -> TableStats:
-    counts = torch.diff(t.offsets.to(torch.int64))
-    sd = t.disc_sorted
-    b = torch.repeat_interleave(
-        torch.arange(counts.numel(), device=counts.device), counts)
-    dup = int(((sd[1:] == sd[:-1]) & (b[1:] == b[:-1])).sum())
+    counts = torch.diff(PL.u32_value(t.offsets))
+    dup = None
+    if t.disc_sorted is not None:
+        sd = t.disc_sorted
+        b = torch.repeat_interleave(
+            torch.arange(counts.numel(), device=counts.device), counts)
+        dup = int(((sd[1:] == sd[:-1]) & (b[1:] == b[:-1])).sum())
     cnt = counts.cpu()
     return TableStats(
         entries=int(cnt.sum()),
@@ -205,20 +253,223 @@ def build_baby_table_device(w: int, htsz: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
-# Probing: an index gather of dense rows plus a compare
+# Streamed big-w build: incremental scatter, one chunk of transients
+
+
+def _disc_lo_shift(htsz: int) -> tuple[int, int]:
+    """(shift, mask) extracting up to 8 prefix bits just below the htsz+32
+    that a dense entry certifies. The 64-bit prefix's low 32 - htsz bits
+    are otherwise discarded; 8 of them in the hint let a lookup reject a
+    probe false positive without regenerating anything."""
+    spare = 32 - htsz
+    take = min(8, max(0, spare))
+    return spare - take, (1 << take) - 1
+
+
+def _u16_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^16) -> int16 tensor with the same 16 bits."""
+    return (((x + (1 << 15)) & 0xFFFF) - (1 << 15)).to(torch.int16)
+
+
+def _chunk_scatter(hi, lo, flat_dense, counts, flat_hint, flat_pos,
+                   base: int, *, htsz: int, window: int) -> None:
+    """Insert one chunk of prefixes (baby positions base+1 .. base+m) into
+    the table IN PLACE: nothing the size of the table is copied.
+
+    rank in bucket = the bucket's running fill (counts) + the entry's rank
+    within the chunk (stable sort by bucket, then index minus segment
+    start), so entries of one bucket keep baby order across chunks, as
+    bsgs_tpu's stable lax.sort gives. ``flat_dense`` (int32), ``flat_hint``
+    (int16 or None) and ``flat_pos`` (int32 or None) are flat
+    (2^htsz * window + 1,) buffers whose last slot is a dump: entries past
+    the window land there, and build_baby_table_streamed then refuses the
+    table because counts.max() exceeds the window. Hint: low byte =
+    position & 0xFF, high byte = the _disc_lo_shift bits. No host wait."""
+    m = hi.shape[0]
+    nb = 1 << htsz
+    lo_v = PL.u32_value(lo)
+    bucket, disc = bucket_disc(PL.u32_value(hi), lo_v, htsz)
+    sb, perm = torch.sort(bucket, stable=True)
+    idx = torch.arange(m, device=hi.device)
+    is_start = torch.ones_like(sb, dtype=torch.bool)
+    is_start[1:] = sb[1:] != sb[:-1]
+    seg_start = torch.cummax(
+        torch.where(is_start, idx, torch.zeros_like(idx)), 0).values
+    rank = idx - seg_start + counts[sb]
+    slot = torch.where(rank < window, sb * window + rank,
+                       torch.full_like(rank, nb * window))
+    pos = perm + (base + 1)
+    flat_dense[slot] = PL.u32_bits(disc[perm])
+    if flat_hint is not None:
+        sh, mk = _disc_lo_shift(htsz)
+        dlo = (lo_v[perm] >> sh) & mk
+        flat_hint[slot] = _u16_bits((pos & 0xFF) | (dlo << 8))
+    if flat_pos is not None:
+        flat_pos[slot] = PL.u32_bits(pos)
+    counts.index_add_(0, sb, torch.ones_like(sb, dtype=counts.dtype))
+
+
+def _i32(v: int) -> int:
+    """A uint32 value as the int32 with the same bits."""
+    return ((v & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+
+
+def _match(hi, lo, pre64: int) -> list[int]:
+    """Indices of a generated tile whose 64-bit prefix equals pre64 (every
+    one; the host waits for the answer)."""
+    m = (hi == _i32(pre64 >> 32)) & (lo == _i32(pre64))
+    return torch.nonzero(m).flatten().tolist()
+
+
+def make_strided_lookup(w: int, dense, pos_lo, htsz: int,
+                        tile: int = 1 << 20):
+    """Position lookup through the slot-aligned 16-bit hint ``pos_lo`` (low
+    byte = position & 0xFF, high byte = 8 prefix bits below the stored
+    disc), on the device that holds ``dense``:
+
+    1. the bucket's dense row and hint row are pulled to the host (two
+       waits); a slot whose disc matches but whose extra bits do not is a
+       probe false positive and is rejected with no regeneration;
+    2. a surviving slot narrows the baby index to r = r_lo (mod 256), and
+       only that subsequence, w/256 points, is regenerated and matched on
+       the full 64-bit prefix.
+
+    Costs 2 B per slot beside the 4 B dense matrix. The hint only prunes:
+    every candidate is still confirmed by exact host EC in the checker.
+    ``lookup.batch(pres)`` resolves each prefix in turn (one residue scan
+    per surviving residue class of each prefix); ``lookup.stats`` counts
+    lookups, slots rejected by the extra bits, and residue scans."""
+    sh, mk = _disc_lo_shift(htsz)
+    stats = {"lookups": 0, "rejected": 0, "residue_scans": 0}
+
+    def _residue_scan(pre64: int, r_lo: int) -> list:
+        first = r_lo if r_lo else 256
+        if first > w:
+            return []
+        stats["residue_scans"] += 1
+        count = (w - first) // 256 + 1
+        out = []
+        done = 0
+        for hi, lo in _prefix_tiles_planar(count, tile, dense.device,
+                                           first=first, stride=256):
+            out.extend(first + (done + i) * 256 for i in _match(hi, lo, pre64))
+            done += hi.shape[0]
+        return [r for r in out if 1 <= r <= w]
+
+    def lookup(pre64: int) -> list:
+        pre64 = int(pre64) & ((1 << 64) - 1)
+        stats["lookups"] += 1
+        bucket = pre64 >> (64 - htsz)
+        disc = np.uint32((pre64 >> (32 - htsz)) & 0xFFFFFFFF)
+        row = dense[bucket].cpu().numpy().view(np.uint32)
+        plo = pos_lo[bucket].cpu().numpy().view(np.uint16)
+        want_dlo = (pre64 >> sh) & mk
+        r_los = set()
+        for p, dd in zip(plo, row):
+            if dd != disc:
+                continue
+            if mk and (int(p) >> 8) != want_dlo:
+                stats["rejected"] += 1
+                continue
+            r_los.add(int(p) & 0xFF)
+        res = []
+        for r_lo in sorted(r_los):
+            res.extend(_residue_scan(pre64, r_lo))
+        return sorted(set(res))
+
+    def lookup_many(pres) -> dict:
+        return {p: lookup(p) for p in pres}
+
+    lookup.batch = lookup_many
+    lookup.stats = stats
+    return lookup
+
+
+def build_baby_table_streamed(w: int, htsz: Optional[int] = None,
+                              window: int = DEVICE_WINDOW,
+                              tile: int = 1 << 20, chunk: int = 1 << 21,
+                              positions: str = "auto",
+                              device=None) -> BabyTable:
+    """Big-w device build: prefixes are generated tile by tile, gathered
+    into chunks of at least ``chunk`` and scattered into the dense matrix
+    in place (_chunk_scatter), so peak device memory is the table plus one
+    chunk of transients.
+
+    ``positions`` says how the checker later maps a matched prefix to baby
+    indices:
+      "mirror": a slot-aligned int32 position plane beside the dense
+        matrix (4 B per slot more), on the same device; no hint plane is
+        allocated or filled (bsgs_tpu's mirror build fills one it never
+        reads).
+      "rescan": the int16 hint plane (2 B per slot) and
+        make_strided_lookup: a verified hit regenerates w/256 points.
+      "auto": rescan at w >= 2^28, mirror below.
+    """
+    dev = resolve_device(device)
+    if htsz is None:
+        htsz = pick_htsz(w, window)
+    if positions == "auto":
+        positions = "rescan" if w >= STREAMED_W else "mirror"
+    if positions not in ("mirror", "rescan"):
+        raise ValueError(f"positions must be mirror, rescan or auto "
+                         f"(got {positions!r})")
+    mirror = positions == "mirror"
+    nb = 1 << htsz
+    slots = nb * window
+    flat_dense = torch.full((slots + 1,), DENSE_FILL, dtype=torch.int32,
+                            device=dev)
+    counts = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    flat_hint = None if mirror else torch.zeros(
+        (slots + 1,), dtype=torch.int16, device=dev)
+    flat_pos = torch.zeros((slots + 1,), dtype=torch.int32,
+                           device=dev) if mirror else None
+
+    buf, have, base = [], 0, 0
+
+    def flush():
+        nonlocal buf, have, base
+        hi = torch.cat([b[0] for b in buf])
+        lo = torch.cat([b[1] for b in buf])
+        _chunk_scatter(hi, lo, flat_dense, counts, flat_hint, flat_pos,
+                       base, htsz=htsz, window=window)
+        base += have
+        buf, have = [], 0
+
+    for hi, lo in _prefix_tiles_planar(w, tile, dev):
+        buf.append((hi, lo))
+        have += hi.shape[0]
+        if have >= chunk:
+            flush()
+    if have:
+        flush()
+
+    maxb = int(counts.max())
+    if maxb > window:
+        raise ValueError(
+            f"bucket overflow: max bucket {maxb} > window {window}; "
+            f"raise htsz (now {htsz}) or window"
+        )
+    offsets = PL.u32_bits(torch.cat(
+        [counts.new_zeros(1, dtype=torch.int64),
+         torch.cumsum(counts, 0, dtype=torch.int64)]))
+    dense = flat_dense[:-1].view(nb, window)
+    pos_lo = None if mirror else flat_hint[:-1].view(nb, window)
+    return BabyTable(
+        w=w, htsz=htsz, window=window, offsets=offsets, disc_sorted=None,
+        pos_sorted=None, dense=dense,
+        pos_dense=flat_pos[:-1].view(nb, window) if mirror else None,
+        pos_lo=pos_lo,
+        lookup_fn=None if mirror
+        else make_strided_lookup(w, dense, pos_lo, htsz, tile),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Probing
 
 
 def probe_keys(bucket, disc, dense):
-    """found[i] = any(dense[bucket[i], :] == disc[i]) for int32 key rows."""
-    return (dense[bucket.long()] == disc[:, None]).any(dim=1)
-
-
-def probe_keys_split(bucket, disc, dense, n_split: int = 8):
-    """probe_keys over n_split parts of the stream (any length), so the
-    (m, window) gathered rows exist one part at a time."""
-    parts = [
-        probe_keys(b, d, dense)
-        for b, d in zip(torch.tensor_split(bucket, n_split),
-                        torch.tensor_split(disc, n_split))
-    ]
-    return torch.cat(parts)
+    """found[i] = any(dense[bucket[i], :] == disc[i]) for int32 key rows:
+    the probe kernel on the card, its plain version on the CPU
+    (ops/probe_kernel.probe_rows)."""
+    return probe_kernel.probe_rows(bucket, disc, dense)

@@ -8,6 +8,10 @@ one ``nvcc`` each. A failed build raises; nothing falls back.
 
 Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises when that is not 0.
+
+``LAUNCHES`` counts the launches of every kernel wrapper of the package
+(``ops/epoch_kernel.py``, ``ops/probe_kernel.py``): a wrapper adds one
+where it launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -36,7 +40,19 @@ SIGNATURES = {
     "bsgs_mont_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "bsgs_fermat": [_P, _P, _I, _P],
     "bsgs_add_const": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "bsgs_probe_rows": [_P, _P, _P, _P, _I, _I, _P],
 }
+
+# kernel wrappers, in the order of the JAX package's Pallas kernels
+KERNELS = ("epoch_fwd", "epoch_bwd", "mont_fwd", "mont_bwd", "fermat",
+           "add_const", "probe_rows")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
 
 _lock = threading.Lock()
 _libs: list = []

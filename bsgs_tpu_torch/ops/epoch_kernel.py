@@ -17,7 +17,7 @@ add_const      _addc_kernel                          (x, y) + C per lane
 
 Dispatch: a CUDA tensor launches the kernel (a failed build or launch
 raises), a CPU tensor runs the plain version; nothing else is accepted and
-nothing falls back. Each launch adds one to ``LAUNCHES[name]``.
+nothing falls back. Each launch adds one to ``_cuda.LAUNCHES[name]``.
 
 Planes are ``(16, M)`` int32 tensors of 16-bit limbs; key planes and
 prefixes are int32 tensors holding the uint32 bits of the JAX package's.
@@ -39,21 +39,12 @@ from .. import resolve_device
 from ..utils import ecpy
 from . import _cuda, ec, field as F, planar as P
 
-KERNELS = ("epoch_fwd", "epoch_bwd", "mont_fwd", "mont_bwd", "fermat",
-           "add_const")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
-
 CHUNK_C = 8
 LANES_W = 256
 FERMAT_MAX = 1 << 13  # widest batch inverted directly by the Fermat kernel
 FILL_SEED = 1024  # host-exact points that start a planar doubling fill
 
 _I32 = torch.int32
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -127,7 +118,7 @@ def epoch_fwd(ox, cx, *, chunk_c: int, lanes_w: int):
                       device=ox.device)
     _cuda.launch("bsgs_epoch_fwd", ox, cx, pre, tot, t_jobs, n, chunk_c,
                  lanes_w)
-    LAUNCHES["epoch_fwd"] += 1
+    _cuda.LAUNCHES["epoch_fwd"] += 1
     return pre, tot
 
 
@@ -183,7 +174,7 @@ def epoch_bwd(ox, oy, cx, cy, pre, itot, *, htsz: int, chunk_c: int,
     out = torch.empty((8, t_jobs * n), dtype=_I32, device=ox.device)
     _cuda.launch("bsgs_epoch_bwd", ox, oy, cx, cy, pre, itot, out, t_jobs,
                  n, chunk_c, lanes_w, htsz)
-    LAUNCHES["epoch_bwd"] += 1
+    _cuda.LAUNCHES["epoch_bwd"] += 1
     return out
 
 
@@ -217,7 +208,7 @@ def mont_fwd(v, *, chunk_c: int, lanes_w: int):
     tot = torch.empty((F.NLIMBS, blocks * lanes_w), dtype=_I32,
                       device=v.device)
     _cuda.launch("bsgs_mont_fwd", v, pre, tot, m, chunk_c, lanes_w)
-    LAUNCHES["mont_fwd"] += 1
+    _cuda.LAUNCHES["mont_fwd"] += 1
     return pre, tot
 
 
@@ -242,7 +233,7 @@ def mont_bwd(v, pre, itot, *, chunk_c: int, lanes_w: int):
     _chains(m, chunk_c, lanes_w)
     out = torch.empty_like(v)
     _cuda.launch("bsgs_mont_bwd", v, pre, itot, out, m, chunk_c, lanes_w)
-    LAUNCHES["mont_bwd"] += 1
+    _cuda.LAUNCHES["mont_bwd"] += 1
     return out
 
 
@@ -258,7 +249,7 @@ def fermat(x):
         return torch.empty_like(x)
     out = torch.empty_like(x)
     _cuda.launch("bsgs_fermat", x, out, x.shape[1])
-    LAUNCHES["fermat"] += 1
+    _cuda.LAUNCHES["fermat"] += 1
     return out
 
 
@@ -311,7 +302,7 @@ def add_const(xs, ys, inv, cx, cy):
     x3, y3 = torch.empty_like(xs), torch.empty_like(ys)
     prefix = torch.empty((2, m), dtype=_I32, device=xs.device)
     _cuda.launch("bsgs_add_const", xs, ys, inv, cx, cy, x3, y3, prefix, m)
-    LAUNCHES["add_const"] += 1
+    _cuda.LAUNCHES["add_const"] += 1
     return x3, y3, prefix
 
 

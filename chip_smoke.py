@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU.
+"""Drive the PyTorch/CUDA port's two paths once on one GPU.
 
     python3 chip_smoke.py
 
@@ -7,18 +7,32 @@ Phases, each followed by torch.cuda.synchronize(); any failure exits
 nonzero:
 
 1. build the CUDA kernels of bsgs_tpu_torch/csrc with nvcc (sm_90a);
-2. run each of the six kernels and its plain PyTorch version on the card
-   at the main path's shapes and require bit-identical outputs, timing
-   both; time one epoch phase at chain lengths 4, 8 and 16 and require
-   the same key plane from each;
+2. run each of the six epoch and table kernels and its plain PyTorch
+   version on the card at the main path's shapes and require bit-identical
+   outputs, timing both; time one epoch phase at chain lengths 4, 8 and 16
+   and require the same key plane from each;
 3. build the w=2^26 baby table (htsz=20, 128-slot rows, tile 2^18);
 4. solve a planted key in the second epoch at N=2^18, T=16, 4 phases,
-   3 epochs in flight;
-5. time 8-epoch scans of a pubkey with no key in range (giant-steps/s)
+   3 epochs in flight; read the launch counts of phases 3-4;
+5. run the probe kernel and its plain version on that table with the
+   keys of a real epoch phase plus planted members (m = 2^20, 16 and an
+   odd length) and on synthetic 512-slot and 20-slot tables,
+   bit-identical, timed; build the same table streamed and require the
+   one-shot build's entries, one for one;
+6. time 8-epoch scans of a pubkey with no key in range (giant-steps/s)
    and profile a short one (device time by kernel, busy share, the host's
    waits for the device);
-6. print the kernels' JSON line (launch counts from phases 3-4, which
-   must all be > 0), the card's name and power limit, and the result line.
+7. free that table and drive the streamed path: hold the six kernels
+   against their plain versions again at this path's shapes (24 bucket
+   bits, 2^20-lane tiles), build the w=2^30 table (htsz=24, rescan
+   positions: an 8 GiB dense matrix and a 4 GiB hint plane), look
+   positions up, solve a planted key in the second epoch through deferred
+   verification, read the launch counts of this path, hold the probe
+   kernel against its plain version on the 8 GiB table, and time 32-epoch
+   scans (giant-steps/s, hits checked, residue scans, host waits), without
+   and with a planted slot that survives the hint to a residue scan;
+8. print the kernels' JSON line (every kernel launched on both paths),
+   the card's name and power limit, and the result line.
 
 Needs one CUDA card; exits nonzero without one, or without the package
 beside it.
@@ -56,6 +70,7 @@ TPU_KERNEL = {
     "mont_bwd": "bsgs_tpu/ops/epoch_kernel.py:122",
     "fermat": "bsgs_tpu/ops/epoch_kernel.py:132",
     "add_const": "bsgs_tpu/ops/epoch_kernel.py:198",
+    "probe_rows": "bsgs_tpu/ops/probe_kernel.py:37",
 }
 
 
@@ -107,11 +122,14 @@ def build_kernels() -> float:
     return time.time() - t0
 
 
-def check_kernels(device, T: int = 4, N: int = 1 << 18, htsz: int = 20):
-    """Each kernel against its plain version at the main path's shapes:
-    one epoch phase (T=4 centers x N offsets), its chain totals for the
-    Montgomery passes, the Fermat width they recurse to, and one 2^18-lane
-    table pass for add_const. Returns the per-kernel records."""
+def check_kernels(device, label: str, htsz: int, m_tab: int, m_mont=None,
+                  T: int = 4, N: int = 1 << 18):
+    """Each kernel against its plain version at one path's shapes: one
+    epoch phase (T=4 centers x N offsets) with the path's bucket bits,
+    Montgomery passes of m_mont lanes (default: the phase's chain totals),
+    the Fermat width they recurse to, and one table pass of m_tab lanes
+    (the path's build tile) for add_const. Returns the per-kernel
+    records."""
     import numpy as np
     import torch
 
@@ -127,12 +145,12 @@ def check_kernels(device, T: int = 4, N: int = 1 << 18, htsz: int = 20):
     for t, j in ((0, 5), (1, N // 3), (T - 1, N - 1)):
         ox[:, j] = cx[:, t]
     m_tot = T * N // C
-    v_tot = random_planes(rng, 16, m_tot, device)
-    m_fermat = m_tot
+    m_mont = m_mont or m_tot
+    v_tot = random_planes(rng, 16, m_mont, device)
+    m_fermat = m_mont
     while m_fermat > EK.FERMAT_MAX:
         m_fermat = m_fermat // (C * W) * W
     v_fermat = random_planes(rng, 16, m_fermat, device)
-    m_tab = N  # one table tile
     xs = random_planes(rng, 16, m_tab, device)
     ys = random_planes(rng, 16, m_tab, device)
     inv = random_planes(rng, 16, m_tab, device)
@@ -143,7 +161,7 @@ def check_kernels(device, T: int = 4, N: int = 1 << 18, htsz: int = 20):
     pre, tot = EK.epoch_fwd(ox, cx, chunk_c=C, lanes_w=W)
     itot = EK.batch_inv_planar(tot)
     vpre, _ = EK.mont_fwd(v_tot, chunk_c=C, lanes_w=W)
-    vitot = random_planes(rng, 16, m_tot // C, device)
+    vitot = random_planes(rng, 16, m_mont // C, device)
     torch.cuda.synchronize()
 
     # name: (kernel, plain version, int32 instructions, field elements read
@@ -163,12 +181,12 @@ def check_kernels(device, T: int = 4, N: int = 1 << 18, htsz: int = 20):
         "mont_fwd": (
             lambda: EK.mont_fwd(v_tot, chunk_c=C, lanes_w=W),
             lambda: EK.mont_fwd_plain(v_tot, chunk_c=C, lanes_w=W),
-            m_tot * OPS_MUL, 2 * m_tot + m_tot // C, 0),
+            m_mont * OPS_MUL, 2 * m_mont + m_mont // C, 0),
         "mont_bwd": (
             lambda: EK.mont_bwd(v_tot, vpre, vitot, chunk_c=C, lanes_w=W),
             lambda: EK.mont_bwd_plain(v_tot, vpre, vitot, chunk_c=C,
                                       lanes_w=W),
-            m_tot * 2 * OPS_MUL, 3 * m_tot + m_tot // C, 0),
+            m_mont * 2 * OPS_MUL, 3 * m_mont + m_mont // C, 0),
         "fermat": (
             lambda: EK.fermat(v_fermat),
             lambda: EK.fermat_plain(v_fermat),
@@ -213,7 +231,7 @@ def check_kernels(device, T: int = 4, N: int = 1 << 18, htsz: int = 20):
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, bound_ms_packed=1e3 * max(op_s, packed_s),
             bound_by_packed="operations" if op_s >= packed_s else "bytes")
-        log(f"kernel {name}: bit-identical to plain; {ms:.4f} ms "
+        log(f"kernel {name} [{label}]: bit-identical to plain; {ms:.4f} ms "
             f"(plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
             f"{bound_by}, {1e3 * max(op_s, packed_s):.4f} ms at 32 B per "
             f"element); exact/doubling lanes included")
@@ -226,12 +244,147 @@ def check_kernels(device, T: int = 4, N: int = 1 << 18, htsz: int = 20):
             return EK.epoch_landing_keys(cx, cy, ox, oy, htsz=htsz,
                                          chunk_c=c, lanes_w=W)
         keys[c] = phase()
-        log(f"chain length {c}: epoch_landing_keys {cuda_ms(phase, 10):.4f}"
-            f" ms per phase (T={T}, N={N}, W={W})")
+        log(f"chain length {c} [{label}]: epoch_landing_keys "
+            f"{cuda_ms(phase, 10):.4f} ms per phase (T={T}, N={N}, W={W}, "
+            f"htsz={htsz})")
     if any(not torch.equal(keys[c], keys[C]) for c in keys):
         raise AssertionError("key planes differ between chain lengths")
     torch.cuda.synchronize()
     return records
+
+
+def phase_keys(solver, seed: int):
+    """The + branch (bucket, disc) streams of one real epoch phase: the
+    first T/phases centers of an epoch of a seeded pubkey."""
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
+    from bsgs_tpu_torch.utils import ecpy
+
+    cfg = solver.cfg
+    per = cfg.jobs_per_epoch // solver._phases
+    q0 = ecpy.mul((1 << 190) + seed)
+    cx, cy, _ = solver._centers_on_device(q0, 0)
+    keys = EK.epoch_landing_keys(
+        cx[:per].T.contiguous(), cy[:per].T.contiguous(), solver.ox_pl,
+        solver.oy_pl, htsz=cfg.htsz, chunk_c=cfg.chunk_c,
+        lanes_w=cfg.lanes_w)
+    return keys[0].clone(), keys[1].clone()
+
+
+def plant_members(bucket, disc, dense, gen, every: int = 8):
+    """Overwrite every ``every``-th probe with a random slot of the table
+    (a member, or an empty slot's 0xFFFFFFFF, which matches too)."""
+    import torch
+
+    idx = torch.arange(0, bucket.shape[0], every, device=bucket.device)
+    rows = torch.randint(0, dense.shape[0], idx.shape, generator=gen,
+                         device=bucket.device)
+    cols = torch.randint(0, dense.shape[1], idx.shape, generator=gen,
+                         device=bucket.device)
+    bucket[idx] = rows.to(torch.int32)
+    disc[idx] = dense[rows, cols]
+    return bucket, disc
+
+
+def check_probe(label: str, bucket, disc, dense, reps: int = 20) -> dict:
+    """probe_rows against probe_rows_plain on the card, bit-identical, both
+    timed. The bound is bytes: each probe reads its row and its 8-byte key
+    and writes one byte (the window compares are negligible beside
+    them)."""
+    import torch
+
+    from bsgs_tpu_torch.ops import probe_kernel as PK
+
+    got = PK.probe_rows(bucket, disc, dense)
+    want = PK.probe_rows_plain(bucket, disc, dense)
+    torch.cuda.synchronize()
+    if got.dtype != torch.bool or got.shape != want.shape:
+        raise AssertionError(f"probe {label}: {got.dtype} {got.shape}")
+    err = int((got != want).sum())
+    if err:
+        raise AssertionError(f"probe {label}: kernel differs from its plain "
+                             f"version on {err} probes")
+    m, window = bucket.shape[0], dense.shape[1]
+    hits = int(want.sum())
+    if m >= 16 and not 0 < hits < m:
+        raise AssertionError(f"probe {label}: one-sided answers ({hits}/{m})")
+    ms = cuda_ms(lambda: PK.probe_rows(bucket, disc, dense), reps)
+    plain_ms = cuda_ms(lambda: PK.probe_rows_plain(bucket, disc, dense), 2)
+    bound_ms = 1e3 * m * (4 * window + 9) / HBM_BYTES_PER_S
+    log(f"kernel probe_rows [{label}]: bit-identical to plain ({hits} of "
+        f"{m} found); {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms by bytes), table "
+        f"{dense.numel() * 4 / 2**20:.0f} MiB, window {window}")
+    return dict(label=label, m=m, window=window, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, table_mib=dense.numel() * 4 / 2**20)
+
+
+def check_probe_on_table(label: str, solver, device) -> list:
+    """The probe kernel on a solver's own table: one phase's stream of
+    real keys with members planted, then m = 16 and an odd length."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    bucket, disc = plant_members(*phase_keys(solver, SEED), solver.baby.dense,
+                                 gen)
+    dense = solver.baby.dense
+    out = [check_probe(f"{label}, one phase's stream", bucket, disc, dense)]
+    for m in (16, 5001):
+        out.append(check_probe(f"{label}, m={m}", bucket[:m].clone(),
+                               disc[:m].clone(), dense))
+    return out
+
+
+def check_probe_synthetic(device, rows: int, window: int, m: int) -> dict:
+    """A seeded random table of another row width, half the probes planted
+    members: the 512-slot layout (2^18 rows, 512 MiB, well beyond the 50 MB
+    L2) and a narrow row that leaves most of a warp's lanes idle."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + window)
+    dense = torch.randint(-(1 << 31), 1 << 31, (rows, window), generator=gen,
+                          device=device, dtype=torch.int64).to(torch.int32)
+    dense[7, window // 2:] = -1
+    bucket = torch.randint(0, rows, (m,), generator=gen,
+                           device=device).to(torch.int32)
+    disc = torch.randint(-(1 << 31), 1 << 31, (m,), generator=gen,
+                         device=device, dtype=torch.int64).to(torch.int32)
+    bucket, disc = plant_members(bucket, disc, dense, gen, every=2)
+    return check_probe(f"synthetic window {window}", bucket, disc, dense)
+
+
+def check_streamed_against_device_build(baby, device) -> None:
+    """The streamed build (mirror positions, 32 chunk flushes) of the same
+    w=2^26 table must hold exactly what the one-shot build holds: equal
+    offsets, and the (bucket, disc, position) of every filled slot, sorted
+    stably by (bucket, disc), equal to the CSR arrays entry for entry."""
+    import torch
+
+    from bsgs_tpu_torch.models import table as T
+    from bsgs_tpu_torch.ops import planar as PL
+
+    t0 = time.time()
+    st = T.build_baby_table_streamed(baby.w, baby.htsz, window=baby.window,
+                                     positions="mirror", device=device)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    if not torch.equal(st.offsets, baby.offsets):
+        raise AssertionError("streamed build: offsets differ")
+    filled = st.pos_dense != 0
+    if int(filled.sum()) != baby.w:
+        raise AssertionError("streamed build: not every baby has a slot")
+    rows = torch.arange(st.dense.shape[0], device=device)[:, None]
+    keys = ((rows << 32) | PL.u32_value(st.dense))[filled]
+    skey, perm = torch.sort(keys, stable=True)
+    if not torch.equal(PL.u32_bits(skey & 0xFFFFFFFF), baby.disc_sorted):
+        raise AssertionError("streamed build: discs differ from the CSR's")
+    if not torch.equal(st.pos_dense[filled][perm], baby.pos_sorted):
+        raise AssertionError("streamed build: positions differ from the "
+                             "CSR's")
+    log(f"streamed build of the w=2^26 table (mirror positions) in "
+        f"{t_build:.2f} s: offsets, discs and positions equal the one-shot "
+        f"build's, entry for entry")
 
 
 def profile_scan(solver, pub, pk: int, epochs: int) -> None:
@@ -282,7 +435,8 @@ def profile_scan(solver, pub, pk: int, epochs: int) -> None:
 def count_syncs(solver, pub, pk: int, epochs: int) -> None:
     """The host's waits for the device during a scan, by source line, from
     PyTorch's sync debug mode: the solve loop means to wait once per epoch,
-    in Solver._collect's int(cnt), plus hit readback when an epoch hits."""
+    in Solver._collect's int(cnt), plus hit readback when an epoch hits and,
+    on a rescan table, the row pulls and matches of verification."""
     import torch
 
     cfg = solver.cfg
@@ -301,6 +455,60 @@ def count_syncs(solver, pub, pk: int, epochs: int) -> None:
         f"{dict(sites)}")
 
 
+def read_launches(path: str, totals: dict) -> None:
+    """Record the launch counts of the path just driven (the counters were
+    set to 0 just before it) and fail if a kernel was not launched."""
+    from bsgs_tpu_torch.ops import _cuda
+
+    launches = dict(_cuda.LAUNCHES)
+    totals[path] = launches
+    log(f"launches on the {path} path: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched on the {path} "
+                             f"path: {launches}")
+
+
+def timed_scans(solver, pub, pk: int, epochs: int, repeats: int):
+    """Scans of a pubkey with no key in range, as bench.py times them:
+    host clock around work that ends in a synchronise. Returns the rates
+    (giant-steps/s) and the last result."""
+    import torch
+
+    cfg = solver.cfg
+    rates = []
+    for _ in range(repeats):
+        t0 = time.time()
+        scan = solver.solve(pub, pk, pk + epochs * cfg.keys_per_epoch - 1,
+                            max_epochs=epochs)
+        torch.cuda.synchronize()
+        rates.append(scan.giant_steps / (time.time() - t0))
+        if scan.key is not None or scan.epochs != epochs:
+            raise AssertionError(f"unexpected scan result {scan}")
+    return rates, scan
+
+
+def plant_surviving_slot(baby, cfg, q0, m: int):
+    """Write into a free slot of the streamed table the disc of giant index
+    m's landing with the landing's own extra bits in the hint, so that the
+    probe hits there and the hit survives the hint to one residue scan
+    (which finds no baby point with that prefix). Returns the landing's
+    64-bit prefix and the slot, for undoing it."""
+    import torch
+
+    from bsgs_tpu_torch.models import table as T
+    from bsgs_tpu_torch.utils import ecpy
+
+    pre = ecpy.sub(q0, ecpy.mul(m * cfg.stride))[0] & ((1 << 64) - 1)
+    bucket = pre >> (64 - cfg.htsz)
+    free = torch.nonzero(baby.dense[bucket] == T.DENSE_FILL).flatten()
+    col = int(free[0])
+    sh, mk = T._disc_lo_shift(cfg.htsz)
+    baby.dense[bucket, col] = T._i32(pre >> (32 - cfg.htsz))
+    baby.pos_lo[bucket, col] = int(T._u16_bits(
+        torch.tensor((((pre >> sh) & mk) << 8) | 7)))
+    return pre, (bucket, col)
+
+
 def main() -> int:
     # one card: on a host with several, use only the first visible one
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -315,7 +523,7 @@ def main() -> int:
         return 2
     try:
         from bsgs_tpu_torch.models import solver as S, table as T
-        from bsgs_tpu_torch.ops import epoch_kernel as EK
+        from bsgs_tpu_torch.ops import _cuda
         from bsgs_tpu_torch.utils import ecpy
     except ImportError as e:
         print(f"chip_smoke: the bsgs_tpu_torch package is missing ({e})",
@@ -327,18 +535,21 @@ def main() -> int:
     device = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t_start = time.time()
 
     # 1. build
     log(f"phase 1: kernels built in {build_kernels():.1f} s")
     torch.cuda.synchronize()
 
-    # 2. each kernel against its plain version
-    records = check_kernels(device)
+    # 2. each epoch and table kernel against its plain version
+    records = check_kernels(device, "w=2^26 shapes", htsz=20,
+                            m_tab=1 << 18)
     torch.cuda.synchronize()
 
     # 3-4. the main path, counted: table build, solver set-up, planted solve
+    path_launches = {}
     cfg = S.SolverConfig(w=1 << 26)
-    EK.reset_launches()
+    _cuda.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     baby = S.build_table(cfg, device=device)
@@ -372,28 +583,23 @@ def main() -> int:
     log(f"phase 4: planted key {key:#x} found in epoch {res.epochs - 1} "
         f"({res.giant_steps} giant steps, {res.hits_checked} hits checked, "
         f"{time.time() - t0:.2f} s)")
-    launches = dict(EK.LAUNCHES)
-    for name in EK.KERNELS:
-        records[name]["launches"] = launches[name]
-        log(f"kernel {name}: {launches[name]} launches on the main path")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    read_launches("w=2^26", path_launches)
 
-    # 5. throughput: 8-epoch scans with no key in range, as bench.py times
+    # 5. the probe kernel against its plain version (launches made here and
+    # below count for no path)
+    probe = check_probe_on_table("w=2^26 table", solver, device)
+    probe.append(check_probe_synthetic(device, 1 << 18, 512, 1 << 18))
+    probe.append(check_probe_synthetic(device, 1 << 12, 20, 4099))
+    check_streamed_against_device_build(baby, device)
+    torch.cuda.synchronize()
+
+    # 6. throughput: 8-epoch scans with no key in range
+    torch.cuda.reset_peak_memory_stats()
     pub = ecpy.mul((1 << 200) + 12345)
     solver.solve(pub, pk, pk + cfg.keys_per_epoch - 1, max_epochs=1)
     torch.cuda.synchronize()
-    epochs = 8
-    rates = []
-    for _ in range(3):
-        t0 = time.time()
-        scan = solver.solve(pub, pk, pk + epochs * cfg.keys_per_epoch - 1,
-                            max_epochs=epochs)
-        torch.cuda.synchronize()
-        rates.append(scan.giant_steps / (time.time() - t0))
-        if scan.key is not None or scan.epochs != epochs:
-            raise AssertionError(f"unexpected scan result {scan}")
-    log(f"phase 5: {epochs}-epoch scans of {scan.giant_steps} giant steps: "
+    rates, scan = timed_scans(solver, pub, pk, epochs=8, repeats=3)
+    log(f"phase 6: 8-epoch scans of {scan.giant_steps} giant steps: "
         f"{', '.join(f'{r:.1f}' for r in rates)} giant-steps/s "
         f"(best {max(rates):.1f}) on {card}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -401,7 +607,143 @@ def main() -> int:
     count_syncs(solver, pub, pk, epochs=4)
     torch.cuda.synchronize()
 
-    print(json.dumps({"kernels": [records[k] for k in EK.KERNELS]}))
+    # 7. the streamed path: w=2^30, rescan positions, deferred verification
+    del solver, baby
+    torch.cuda.empty_cache()
+    cfg = S.SolverConfig(w=1 << 30)
+    if (cfg.htsz, S.VERIFY_DEFER_EPOCHS) != (24, 64):
+        raise AssertionError(f"unexpected big-w defaults: {cfg}")
+    # this path gives the six kernels other inputs: 24 bucket bits in the
+    # key plane, and 2^20-lane tiles in the build and the residue scans
+    records_big = check_kernels(device, "w=2^30 shapes", htsz=cfg.htsz,
+                                m_tab=1 << 20, m_mont=1 << 20)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    baby = S.build_table(cfg, device=device)
+    torch.cuda.synchronize()
+    t_table = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats = T.table_stats(baby)
+    log(f"phase 7: w=2^30 streamed table built in {t_table:.2f} s (peak "
+        f"device memory {peak:.2f} GiB; dense "
+        f"{baby.dense.numel() * 4 / 2**30:.0f} GiB + hint "
+        f"{baby.pos_lo.numel() * 2 / 2**30:.0f} GiB); {stats}")
+    if (stats.entries != cfg.w or stats.max_bucket > cfg.window
+            or baby.lookup_fn is None or baby.pos_lo.dtype != torch.int16):
+        raise AssertionError(f"bad streamed table: {stats}")
+    t0 = time.time()
+    members = (1, 256, cfg.w, rng.randrange(1, cfg.w))
+    for r in members:
+        got = baby.lookup_positions(ecpy.mul(r)[0])
+        if got != [r]:
+            raise AssertionError(f"lookup of baby {r} gave {got}")
+    if baby.lookup_positions(ecpy.mul(cfg.w + 12345)[0]) != []:
+        raise AssertionError("a non-member has a position")
+    lstats = baby.lookup_fn.stats
+    log(f"phase 7: positions of {members} exact and a non-member absent in "
+        f"{time.time() - t0:.2f} s ({lstats['residue_scans']} residue scans "
+        f"of {cfg.w // 256} points)")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    solver = S.Solver(cfg, baby=baby, device=device)
+    torch.cuda.synchronize()
+    log(f"phase 7: {cfg.n_offsets} giant offsets filled and spot-checked "
+        f"in {time.time() - t0:.2f} s")
+    pk = 1 << 60
+    key = pk + cfg.keys_per_epoch + rng.randrange(cfg.keys_per_epoch)
+    before = dict(lstats)
+    t0 = time.time()
+    res = solver.solve(ecpy.mul(key), pk, pk + 3 * cfg.keys_per_epoch - 1)
+    torch.cuda.synchronize()
+    if res.key != key or res.epochs < 3:
+        raise AssertionError(f"planted key {key:#x} not found through "
+                             f"deferred verification: {res}")
+    log(f"phase 7: planted key {key:#x} of epoch 1 found after "
+        f"{res.epochs} drained epochs, verification deferred to the scan's "
+        f"end ({res.giant_steps} giant steps, {res.hits_checked} hits "
+        f"checked, {lstats['residue_scans'] - before['residue_scans']} "
+        f"residue scans, {time.time() - t0:.2f} s)")
+    read_launches("w=2^30 streamed", path_launches)
+
+    probe_big = check_probe_on_table("w=2^30 table", solver, device)
+    torch.cuda.synchronize()
+
+    pub = ecpy.mul((1 << 200) + 12345)
+    solver.solve(pub, pk, pk + cfg.keys_per_epoch - 1, max_epochs=1)
+    torch.cuda.synchronize()
+    before = dict(lstats)
+    rates, scan = timed_scans(solver, pub, pk, epochs=32, repeats=2)
+    log(f"phase 7: 32-epoch scans of {scan.giant_steps} giant steps at "
+        f"w=2^30: {', '.join(f'{r:.1f}' for r in rates)} giant-steps/s "
+        f"(best {max(rates):.1f}) on {card}; per scan "
+        f"{scan.hits_checked} hits checked; over both scans "
+        f"{lstats['lookups'] - before['lookups']} lookups, "
+        f"{lstats['rejected'] - before['rejected']} slots rejected by the "
+        f"hint's extra bits, "
+        f"{lstats['residue_scans'] - before['residue_scans']} residue "
+        f"scans; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_scan(solver, pub, pk, epochs=4)
+    count_syncs(solver, pub, pk, epochs=32)
+    torch.cuda.synchronize()
+
+    # the same scans with one hit that survives the hint: a planted slot in
+    # epoch 10, verified with the pool at the scan's end by one residue scan
+    q0 = ecpy.sub(pub, ecpy.mul(pk))
+    m_fp = 10 * cfg.jobs_per_epoch * cfg.jobs_span + 12345
+    pre_fp, (fp_row, fp_col) = plant_surviving_slot(baby, cfg, q0, m_fp)
+    before = dict(lstats)
+    t0 = time.time()
+    if baby.lookup_fn(pre_fp) != []:
+        raise AssertionError("the planted slot resolved to a position")
+    t_lookup = time.time() - t0
+    if lstats["residue_scans"] - before["residue_scans"] != 1:
+        raise AssertionError(f"planted slot not scanned: {lstats}")
+    before = dict(lstats)
+    rates_fp, scan_fp = timed_scans(solver, pub, pk, epochs=32, repeats=2)
+    scans_fp = lstats["residue_scans"] - before["residue_scans"]
+    if (scan_fp.hits_checked != scan.hits_checked + 1
+            or scans_fp != len(rates_fp)):
+        raise AssertionError(
+            f"planted slot: {scan_fp.hits_checked} hits checked against "
+            f"{scan.hits_checked} without it, {scans_fp} residue scans")
+    log(f"phase 7: one lookup that survives the hint (two row pulls and "
+        f"one residue scan of {cfg.w // 256} points): {t_lookup:.3f} s; "
+        f"32-epoch scans with that slot planted in epoch 10: "
+        f"{', '.join(f'{r:.1f}' for r in rates_fp)} giant-steps/s against "
+        f"{', '.join(f'{r:.1f}' for r in rates)} without it; per scan "
+        f"{scan_fp.hits_checked} hits checked, 1 residue scan, at the "
+        f"scan's end")
+    baby.dense[fp_row, fp_col] = T.DENSE_FILL
+    baby.pos_lo[fp_row, fp_col] = 0
+    torch.cuda.synchronize()
+
+    # 8. the record
+    main_stream, big_stream = probe[0], probe_big[0]
+    records["probe_rows"] = dict(
+        name="probe_rows", route="cuda",
+        source="bsgs_tpu_torch/csrc/probe_kernels.cu",
+        replaces=TPU_KERNEL["probe_rows"], launches=0, max_abs_err=0,
+        ms=main_stream["ms"], plain_ms=main_stream["plain_ms"],
+        bound_ms=main_stream["bound_ms"], bound_by="bytes",
+        library_ms=None, bound_ms_packed=main_stream["bound_ms"],
+        bound_by_packed="bytes", ms_w30_table=big_stream["ms"],
+        plain_ms_w30_table=big_stream["plain_ms"],
+        shapes=probe + probe_big)
+    for name, rec in records_big.items():
+        records[name]["w30_shapes"] = {
+            k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "bound_ms_packed")}
+    for name in _cuda.KERNELS:
+        records[name]["launches"] = sum(
+            counts[name] for counts in path_launches.values())
+        records[name]["launches_by_path"] = {
+            path: counts[name] for path, counts in path_launches.items()}
+    log(f"whole run: {time.time() - t_start:.1f} s")
+    print(json.dumps({"kernels": [records[k] for k in _cuda.KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

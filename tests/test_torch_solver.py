@@ -1,7 +1,10 @@
 """The port's solver end to end on the CPU, on a bsgs_tpu table carried
 across by convert.py: planted keys through every hit code, exhaustion
-counts equal to the JAX solver's, overflow redispatch; and the guards that
-keep the port free of JAX and off the CPU unless asked."""
+counts equal to the JAX solver's, overflow redispatch; the streamed solve
+on a carried-across rescan table with planted false positives (pooled,
+deferred verification; key, giant_steps, epochs and hits_checked equal to
+the JAX solver's); and the guards that keep the port free of JAX and off
+the CPU unless asked."""
 
 import ast
 import dataclasses
@@ -183,6 +186,154 @@ def test_max_epochs_caps_the_scan(solver):
 
 
 # ---------------------------------------------------------------------------
+# The streamed solve: a rescan table, pooled hits, deferred verification
+
+RESCAN_GEOM = dict(w=256, htsz=6, n_offsets=8, jobs_per_epoch=2, window=16,
+                   table_tile=64)
+RESCAN_PK = 1 << 21
+
+
+def _plant_false_positive(dense, cfg, q0, m):
+    """A dense entry with the disc of giant index m's landing, in a free
+    slot of its bucket (tests/test_solver.py's _plant_fp on a numpy
+    matrix)."""
+    pre = ecpy.sub(q0, ecpy.mul(m * cfg.stride))[0] & ((1 << 64) - 1)
+    bucket = pre >> (64 - cfg.htsz)
+    free = np.where(dense[bucket] == JT.DENSE_FILL)[0]
+    dense[bucket, free[0]] = np.uint32((pre >> (32 - cfg.htsz)) & 0xFFFFFFFF)
+
+
+@pytest.fixture(scope="module")
+def rescan_case():
+    """One bsgs_tpu streamed rescan table with false positives planted in
+    epochs 0 and 2 of a 4-epoch range whose key lies in epoch 3, the JAX
+    solver's result on it, and the table carried across to the port."""
+    import jax.numpy as jnp
+
+    jcfg = JS.SolverConfig(chunk=16, positions="rescan", **RESCAN_GEOM)
+    jt = JT.build_baby_table_streamed(256, 6, window=16, tile=32, chunk=64,
+                                      positions="rescan")
+    k = RESCAN_PK + 3 * jcfg.keys_per_epoch + 1000
+    pub = ecpy.mul(k)
+    q0 = ecpy.sub(pub, ecpy.mul(RESCAN_PK))
+    dense = np.asarray(jt.dense).copy()
+    for m in (5, 70):
+        _plant_false_positive(dense, jcfg, q0, m)
+    jt.dense = jnp.asarray(dense)
+    pke = RESCAN_PK + 4 * jcfg.keys_per_epoch - 1
+    want = JS.Solver(jcfg, baby=jt).solve(pub, RESCAN_PK, pke)
+    assert want.key == k and want.hits_checked >= 3
+    baby = convert.baby_table(
+        w=jt.w, htsz=jt.htsz, window=jt.window, offsets=jt.offsets,
+        dense=dense, pos_lo=np.asarray(jt.pos_lo), tile=64, device="cpu")
+    return dict(k=k, pub=pub, pke=pke, want=want, baby=baby)
+
+
+def _count_batches(baby):
+    """Wrap baby.lookup_fn so that batch and single calls are counted."""
+    calls = {"batch": 0, "single": 0}
+    orig = baby.lookup_fn
+
+    def counting(pre):
+        calls["single"] += 1
+        return orig(pre)
+
+    def counting_batch(pres):
+        calls["batch"] += 1
+        return orig.batch(pres)
+
+    counting.batch = counting_batch
+    baby.lookup_fn = counting
+    return calls, orig
+
+
+def _rescan_solver(baby):
+    cfg = S.SolverConfig(chunk_c=2, lanes_w=4, epoch_phases=2, **RESCAN_GEOM)
+    return S.Solver(cfg, baby=baby, device="cpu")
+
+
+def test_streamed_solve_matches_jax_solver(rescan_case):
+    """Default VERIFY_DEFER_EPOCHS: the hits of all four epochs share one
+    batched lookup, and the result equals the JAX solver's."""
+    c = rescan_case
+    calls, orig = _count_batches(c["baby"])
+    try:
+        got = _rescan_solver(c["baby"]).solve(c["pub"], RESCAN_PK, c["pke"])
+    finally:
+        c["baby"].lookup_fn = orig
+    want = c["want"]
+    assert got.key == want.key == c["k"]
+    assert (got.giant_steps, got.epochs, got.hits_checked) == (
+        want.giant_steps, want.epochs, want.hits_checked)
+    assert calls == {"batch": 1, "single": 0}
+
+
+def test_streamed_solve_without_deferral_verifies_per_drain(rescan_case,
+                                                            monkeypatch):
+    c = rescan_case
+    monkeypatch.setattr(S, "VERIFY_DEFER_EPOCHS", 0)
+    calls, orig = _count_batches(c["baby"])
+    try:
+        got = _rescan_solver(c["baby"]).solve(c["pub"], RESCAN_PK, c["pke"])
+    finally:
+        c["baby"].lookup_fn = orig
+    assert got.key == c["k"]
+    assert calls["batch"] >= 2 and calls["single"] == 0
+    assert got.hits_checked == c["want"].hits_checked
+
+
+def test_scan_end_verifies_pooled_hits(rescan_case):
+    """A 3-epoch scan stops short of the key with the false positives of
+    epochs 0 and 2 still pooled: they are verified before it returns."""
+    c = rescan_case
+    calls, orig = _count_batches(c["baby"])
+    try:
+        got = _rescan_solver(c["baby"]).solve(c["pub"], RESCAN_PK, c["pke"],
+                                              max_epochs=3)
+    finally:
+        c["baby"].lookup_fn = orig
+    assert got.key is None and got.epochs == 3
+    assert got.hits_checked >= 2
+    assert calls == {"batch": 1, "single": 0}
+
+
+def test_deferral_applies_to_rescan_tables_only(jax_table):
+    """A table without lookup_fn verifies at every drain whatever
+    VERIFY_DEFER_EPOCHS says: the key in epoch 0 ends the scan there."""
+    cfg = S.SolverConfig(chunk_c=2, lanes_w=4, epoch_phases=2, pipeline=1,
+                         **GEOM)
+    assert S.VERIFY_DEFER_EPOCHS == 64
+    s = S.Solver(cfg, baby=_carry(jax_table), device="cpu")
+    pk = 1 << 20
+    res = s.solve(ecpy.mul(pk + 4321), pk, pk + 4 * cfg.keys_per_epoch)
+    assert res.key == pk + 4321 and res.epochs == 1
+
+
+def test_build_table_routes_big_w_to_the_streamed_build(monkeypatch):
+    calls = []
+    monkeypatch.setattr(
+        S.tbl, "build_baby_table_streamed",
+        lambda w, htsz, **kw: calls.append(("streamed", w, htsz, kw)))
+    monkeypatch.setattr(
+        S.tbl, "build_baby_table_device",
+        lambda w, htsz, **kw: calls.append(("device", w, htsz, kw)))
+    S.build_table(S.SolverConfig(w=1 << 28), device="cpu")
+    S.build_table(S.SolverConfig(w=(1 << 28) - 1, htsz=22), device="cpu")
+    assert [c[:3] for c in calls] == [("streamed", 1 << 28, 22),
+                                      ("device", (1 << 28) - 1, 22)]
+    # the streamed build picks its own positions: rescan at this size
+    assert "positions" not in calls[0][3]
+    # 6 B per slot with the hint, 4 below 2^28
+    big = S.SolverConfig(w=1 << 30)
+    assert big.htsz == 24
+    assert S.table_bytes_per_slot(big) == 6
+    assert S.table_bytes_per_slot(S.SolverConfig(w=1 << 26)) == 4
+    S.check_table_fits((1 << 24) * 128 * 6, mem_bytes=80 << 30)
+    with pytest.raises(ValueError, match="exceeds"):
+        S.check_table_fits((1 << 24) * 128 * 6, mem_bytes=14 << 30)
+
+
+# ---------------------------------------------------------------------------
 # Guards
 
 
@@ -237,6 +388,6 @@ def test_entry_points_refuse_the_cpu_by_default(jax_table):
 def test_config_defaults_match_bench_geometry():
     cfg = S.SolverConfig(w=1 << 26)
     assert (cfg.htsz, cfg.n_offsets, cfg.jobs_per_epoch, cfg.epoch_phases,
-            cfg.pipeline, cfg.n_split, cfg.table_tile) == (
-        20, 1 << 18, 16, 4, 3, 8, 1 << 18)
+            cfg.pipeline, cfg.table_tile) == (
+        20, 1 << 18, 16, 4, 3, 1 << 18)
     assert dataclasses.replace(cfg, w=64).stride == 128

@@ -1,7 +1,9 @@
 """The port's device table build and probe against bsgs_tpu's, bit for bit:
 build_baby_table_device at w=4096 (offsets, disc_sorted, pos_sorted,
-dense), probe_keys / probe_keys_split against T.probe_keys with planted
-members, and the host lookups the checker walks."""
+dense), probe_keys against T.probe_keys with planted members, and the host
+lookups the checker walks. The probe's own cases are in
+tests/test_torch_probe_kernel.py, the streamed build's in
+tests/test_torch_streamed.py."""
 
 import numpy as np
 import pytest
@@ -89,14 +91,6 @@ def test_probe_keys_matches_jax(probe_case):
     (bucket, disc, dense), want = probe_case
     np.testing.assert_array_equal(T.probe_keys(bucket, disc, dense).numpy(),
                                   want)
-
-
-@pytest.mark.parametrize("n_split", [1, 3, 8])
-def test_probe_keys_split_matches_jax(probe_case, n_split):
-    """Any stream length splits (5000 is not a multiple of 3 or 8)."""
-    (bucket, disc, dense), want = probe_case
-    got = T.probe_keys_split(bucket, disc, dense, n_split=n_split)
-    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("w,window", [(1 << 26, 128), (4096, 128),
