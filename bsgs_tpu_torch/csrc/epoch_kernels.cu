@@ -12,10 +12,11 @@
 // two folds and the canonical step), and an element moves 64 bytes per
 // (16, M) int32 limb plane it reads or writes. The card does about 5
 // integer instructions per byte of memory traffic, so epoch_bwd (6
-// multiplies per pair) and fermat (294 per element) are bound by
-// instructions, and epoch_fwd, mont_fwd, mont_bwd and add_const (1-4
-// multiplies against 2-5 planes) by bytes. Every value stays in registers;
-// each input plane is read once and each output plane written once.
+// multiplies per pair) and the inversion (about 16,800 instructions per
+// element, modinv.cuh) are bound by instructions, and epoch_fwd, mont_fwd,
+// mont_bwd and add_const (1-4 multiplies against 2-5 planes) by bytes.
+// Every value stays in registers; each input plane is read once and each
+// output plane written once.
 //
 // Chains and lanes: a chain is C elements spaced W apart inside a block of
 // C*W columns, as in the Pallas kernels (the TPU walked a block's C chunks
@@ -29,6 +30,7 @@
 #include <cstdint>
 
 #include "field.cuh"
+#include "modinv.cuh"
 
 using bsgs::Fe;
 
@@ -172,15 +174,24 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 // Replaces bsgs_tpu/ops/epoch_kernel.py:_fermat_kernel: one thread per
-// element, a^(p-2) by the addition chain. Bound: instructions (294
-// dependent multiplies); at the 2,048 totals an epoch leaves, one warp
-// per SM, so the multiplies' latency shows.
+// element, the same function (the canonical inverse, 0 -> 0) by batched
+// division steps in place of the 294 dependent multiplies of a^(p-2)
+// (modinv.cuh says how). Bound: instructions. Below about 16,900 lanes (one
+// warp on each of the card's 528 schedulers) its time is the latency of one
+// inversion, above that the instruction rate. Threads past M stay in the
+// warp with x = 0 (no batch to run) because the loop's test is a warp vote.
 __global__ void __launch_bounds__(kBlock)
-    fermat_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+    modinv_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
                   int M) {
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= M) return;
-  bsgs::fe_store(out, M, g, bsgs::inv_mod(bsgs::fe_load(x, M, g)));
+  const bool live = g < M;
+  Fe a = bsgs::fe_load(x, M, live ? g : 0);
+  if (!live) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a.v[i] = 0;
+  }
+  const Fe r = bsgs::inv_mod_divsteps(a);
+  if (live) bsgs::fe_store(out, M, g, r);
 }
 
 // Replaces bsgs_tpu/ops/epoch_kernel.py:_addc_kernel: one thread per lane,
@@ -257,8 +268,8 @@ int bsgs_mont_bwd(const void* v, const void* pre, const void* itot,
   return (int)cudaGetLastError();
 }
 
-int bsgs_fermat(const void* x, void* out, int M, void* stream) {
-  fermat_kernel<<<grid_for(M), kBlock, 0, (cudaStream_t)stream>>>(
+int bsgs_modinv(const void* x, void* out, int M, void* stream) {
+  modinv_kernel<<<grid_for(M), kBlock, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (int32_t*)out, M);
   return (int)cudaGetLastError();
 }

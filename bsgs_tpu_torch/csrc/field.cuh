@@ -1,11 +1,12 @@
 // secp256k1 field arithmetic for the epoch kernels (sm_90a).
 //
 // Device counterpart of bsgs_tpu/ops/planar.py (add_mod, sub_mod, mul_mod,
-// sqr_mod, inv_mod_chain, x_prefix64, bucket_disc). Where the TPU kernels
-// kept 16 limbs of 16 bits (the TPU has no 32x32 multiply-high), a thread
-// here holds one element as 8 little-endian 32-bit limbs in registers and
-// runs PTX carry chains (add.cc/addc, sub.cc/subc, mad.lo.cc/madc.hi).
-// Every carry chain is one asm block, so no carry flag lives across blocks.
+// sqr_mod, x_prefix64, bucket_disc; the inversion is in modinv.cuh). Where
+// the TPU kernels kept 16 limbs of 16 bits (the TPU has no 32x32
+// multiply-high), a thread here holds one element as 8 little-endian 32-bit
+// limbs in registers and runs PTX carry chains (add.cc/addc, sub.cc/subc,
+// mad.lo.cc/madc.hi). Every carry chain is one asm block, so no carry flag
+// lives across blocks.
 //
 // The public layout stays the port's planar one: a (16, M) int32 plane of
 // 16-bit limbs. fe_load packs limb pairs (2i, 2i+1) into one u32 and
@@ -257,38 +258,6 @@ __device__ __forceinline__ Fe mul_mod(const Fe& a, const Fe& b) {
 }
 
 __device__ __forceinline__ Fe sqr_mod(const Fe& a) { return mul_mod(a, a); }
-
-__device__ __forceinline__ Fe sqr_n(Fe x, int n) {
-  for (int i = 0; i < n; ++i) x = sqr_mod(x);
-  return x;
-}
-
-// a^(p-2): 255 squarings and 39 multiplies, the addition chain of
-// bsgs_tpu/ops/planar.py:inv_mod_chain (0 maps to 0).
-__device__ __forceinline__ Fe inv_mod(const Fe& a) {
-  Fe x1 = a;
-  Fe x2 = mul_mod(sqr_n(x1, 1), x1);
-  Fe x4 = mul_mod(sqr_n(x2, 2), x2);
-  Fe x8 = mul_mod(sqr_n(x4, 4), x4);
-  Fe x16 = mul_mod(sqr_n(x8, 8), x8);
-  Fe x32 = mul_mod(sqr_n(x16, 16), x16);
-  Fe x64 = mul_mod(sqr_n(x32, 32), x32);
-  Fe x128 = mul_mod(sqr_n(x64, 64), x64);
-  Fe t = mul_mod(sqr_n(x128, 64), x64);
-  t = mul_mod(sqr_n(t, 16), x16);
-  t = mul_mod(sqr_n(t, 8), x8);
-  t = mul_mod(sqr_n(t, 4), x4);
-  t = mul_mod(sqr_n(t, 2), x2);
-  t = mul_mod(sqr_n(t, 1), x1);  // a^(2^223 - 1)
-  // the low 33 bits of p - 2: a 0, then 0xFFFFFC2D MSB first
-  t = sqr_mod(t);
-  const uint32_t tail = 0xFFFFFC2Du;
-  for (int i = 31; i >= 0; --i) {
-    t = sqr_mod(t);
-    if ((tail >> i) & 1u) t = mul_mod(t, x1);
-  }
-  return t;
-}
 
 // Probe key of x: the top htsz bits of its low 64 bits (bucket) and the
 // 32 bits below them (disc), as bsgs_tpu planar.x_prefix64 + bucket_disc.

@@ -11,7 +11,7 @@ epoch_fwd      _fwd_kernel                           d = Ox - Mx prefixes
 epoch_bwd      _bwd_kernel                           (8, T*N) key plane
 mont_fwd       _mont_fwd_kernel                      Montgomery prefixes
 mont_bwd       _mont_bwd_kernel                      Montgomery inverses
-fermat         _fermat_kernel                        a^(p-2) per element
+fermat         _fermat_kernel                        1/a per element, 0 -> 0
 add_const      _addc_kernel                          (x, y) + C per lane
 =============  ====================================  ======================
 
@@ -27,8 +27,16 @@ A chain is ``chunk_c`` elements spaced ``lanes_w`` apart inside a block of
 changes the intermediate ``pre``/``tot`` planes, never a final inverse,
 key plane or point: those are canonical, so every chain length gives the
 same bits. The TPU's 64 x 256 chose long chains for VMEM; on the card one
-thread walks a chain, and ``CHUNK_C``/``LANES_W`` keep enough threads in
-flight (T*N/CHUNK_C = 131,072 threads per phase at the bench geometry).
+thread walks a chain. ``CHUNK_C`` = 16 was measured best on an H100 among
+4, 8, 16 and 32: at the bench geometry a phase of T*N = 2^20 pairs leaves
+65,536 chain totals, as many threads, and one inversion launch.
+
+The inversion (``fermat``) keeps the name of the TPU kernel it replaces
+and its function, the canonical a^(p-2); on the card it runs batched
+division steps (``csrc/modinv.cuh``) at a seventh of the exponentiation's
+latency. So ``batch_inv_planar`` hands a batch of up to ``DIRECT_MAX``
+lanes to it unfolded: an epoch launches no Montgomery pass, and the table
+tiles (2^18, 2^20 lanes) fold once.
 """
 
 from __future__ import annotations
@@ -39,9 +47,9 @@ from .. import resolve_device
 from ..utils import ecpy
 from . import _cuda, ec, field as F, planar as P
 
-CHUNK_C = 8
+CHUNK_C = 16
 LANES_W = 256
-FERMAT_MAX = 1 << 13  # widest batch inverted directly by the Fermat kernel
+DIRECT_MAX = 1 << 16  # widest batch that the inversion kernel takes unfolded
 FILL_SEED = 1024  # host-exact points that start a planar doubling fill
 
 _I32 = torch.int32
@@ -238,37 +246,51 @@ def mont_bwd(v, pre, itot, *, chunk_c: int, lanes_w: int):
 
 
 def fermat_plain(x):
+    """The plain version: a^(p-2) by the addition chain, an algorithm
+    independent of the kernel's."""
     return P.inv_mod_chain(x.long()).to(_I32)
 
 
+def fermat_divsteps_plain(x):
+    """The kernel's own algorithm in plain PyTorch, limb for limb (batched
+    division steps). Returns (inverses, batches needed per lane)."""
+    inv, batches = P.inv_mod_divsteps(x.long())
+    return inv.to(_I32), batches
+
+
 def fermat(x):
-    """Elementwise a^(p-2) of a (16, m) plane (0 maps to 0)."""
+    """Elementwise inverse mod p of a canonical (16, m) plane, the value
+    a^(p-2) (0 maps to 0). The kernel computes it by batched division
+    steps, the CPU path by the exponentiation; both are canonical, so the
+    bits are the same."""
     if not _on_cuda(x):
         return fermat_plain(x)
     if x.shape[1] == 0:
         return torch.empty_like(x)
     out = torch.empty_like(x)
-    _cuda.launch("bsgs_fermat", x, out, x.shape[1])
+    _cuda.launch("bsgs_modinv", x, out, x.shape[1])
     _cuda.LAUNCHES["fermat"] += 1
     return out
 
 
-def batch_inv_planar(v, *, chunk_c: int = CHUNK_C, lanes_w: int = LANES_W):
-    """Elementwise inverse of a planar (16, m) batch of NONZERO values: one
-    Montgomery fold level per recursion (chains of chunk_c), recursing on
-    the chain totals until at most FERMAT_MAX remain, which the Fermat
-    kernel inverts directly. Pads with ones to a multiple of C*W, as
-    bsgs_tpu's batch_inv_planar does."""
+def batch_inv_planar(v, *, chunk_c: int = CHUNK_C, lanes_w: int = LANES_W,
+                     direct_max: int = DIRECT_MAX):
+    """Elementwise inverse of a planar (16, m) batch of NONZERO values. Up
+    to direct_max lanes go to the inversion kernel as they are; a wider
+    batch takes one Montgomery fold level (chains of chunk_c) per recursion
+    on its chain totals. Pads with ones to a multiple of C*W, as bsgs_tpu's
+    batch_inv_planar does. The tree's shape changes no output bit."""
     m = v.shape[1]
     C, W = chunk_c, lanes_w
-    if m <= FERMAT_MAX:
+    if m <= direct_max:
         return fermat(v)
     pad = (-m) % (C * W)
     if pad:
         vp = torch.cat([v, _ones(pad, v.device)], dim=1)
-        return batch_inv_planar(vp, chunk_c=C, lanes_w=W)[:, :m]
+        return batch_inv_planar(vp, chunk_c=C, lanes_w=W,
+                                direct_max=direct_max)[:, :m]
     pre, tot = mont_fwd(v, chunk_c=C, lanes_w=W)
-    itot = batch_inv_planar(tot, chunk_c=C, lanes_w=W)
+    itot = batch_inv_planar(tot, chunk_c=C, lanes_w=W, direct_max=direct_max)
     return mont_bwd(v, pre, itot, chunk_c=C, lanes_w=W)
 
 

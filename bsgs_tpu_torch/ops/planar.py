@@ -204,6 +204,157 @@ def inv_mod_chain(a):
 
 
 # ---------------------------------------------------------------------------
+# Inversion by division steps: the arithmetic of csrc/modinv.cuh, limb for
+# limb (Bernstein-Yang "safegcd" in batches of 30 steps on signed 30-bit
+# limbs, as libsecp256k1's modinv32 does it).
+
+DIVSTEP_BITS = 30
+DIVSTEP_LIMBS = 9
+# The batches that inputs below 2^256 can need: 590 steps are proven enough
+# for the half-delta variant (libsecp256k1 runs a fixed 20 x 30). The loop
+# ends earlier where every g is 0; the kernel's kMaxBatches is this.
+DIVSTEP_BATCH_CAP = 20
+_M30 = (1 << DIVSTEP_BITS) - 1
+_P_INV30 = pow(F.P_INT, -1, 1 << DIVSTEP_BITS)
+# p = 2^256 - 2^32 - 977 as signed 30-bit limbs: 2^16 * 2^240 - 4 * 2^30 - 977
+_P_S30 = (-977, -4, 0, 0, 0, 0, 0, 0, 1 << 16)
+
+
+def _to_limbs30(a):
+    """(16, *batch) 16-bit limbs -> (9, *batch) 30-bit limbs."""
+    out = []
+    for k in range(DIVSTEP_LIMBS):
+        j, s = divmod(DIVSTEP_BITS * k, LIMB_BITS)
+        acc = a[j] >> s
+        for t in (1, 2):
+            if j + t < NLIMBS:
+                acc = acc | (a[j + t] << (LIMB_BITS * t - s))
+        out.append(acc & _M30)
+    return out
+
+
+def _from_limbs30(v):
+    """9 limbs in [0, 2^30) of a value below 2^256 -> (16, *batch)."""
+    out = []
+    for i in range(NLIMBS):
+        k, s = divmod(LIMB_BITS * i, DIVSTEP_BITS)
+        acc = v[k] >> s
+        if s > DIVSTEP_BITS - LIMB_BITS and k + 1 < DIVSTEP_LIMBS:
+            acc = acc | (v[k + 1] << (DIVSTEP_BITS - s))
+        out.append(acc & LIMB_MASK)
+    return torch.stack(out)
+
+
+def _divsteps_30(zeta, f0, g0):
+    """30 division steps on the low limbs of f and g, branch-free (masks).
+    zeta = -(delta + 1/2). Returns the new zeta and the matrix (u, v; q, r)
+    with 2^30 * (f, g)_new = (u f + v g, q f + r g); |u| + |v| <= 2^30 and
+    |q| + |r| <= 2^30."""
+    u, v = torch.ones_like(f0), torch.zeros_like(f0)
+    q, r = torch.zeros_like(f0), torch.ones_like(f0)
+    f, g = f0, g0
+    for _ in range(DIVSTEP_BITS):
+        c1 = zeta >> 63            # all ones where delta > 0
+        mask2 = -(g & 1)           # all ones where g is odd
+        mask1 = c1 & mask2         # both: f and g swap roles
+        g = g + ((f ^ c1) & mask2) - mask1      # g +- f where g is odd
+        q = q + ((u ^ c1) & mask2) - mask1
+        r = r + ((v ^ c1) & mask2) - mask1
+        zeta = (zeta ^ mask1) - 1  # -zeta - 2 on a swap, else zeta - 1
+        f = f + (g & mask1)
+        u = (u + (q & mask1)) << 1
+        v = (v + (r & mask1)) << 1
+        g = g >> 1
+    return zeta, u, v, q, r
+
+
+def _update_fg_30(f, g, u, v, q, r):
+    """(f, g) <- (u f + v g, q f + r g) / 2^30, exactly."""
+    cf = u * f[0] + v * g[0]
+    cg = q * f[0] + r * g[0]
+    nf, ng = [], []
+    for i in range(1, DIVSTEP_LIMBS):
+        cf = (cf >> DIVSTEP_BITS) + u * f[i] + v * g[i]
+        cg = (cg >> DIVSTEP_BITS) + q * f[i] + r * g[i]
+        nf.append(cf & _M30)
+        ng.append(cg & _M30)
+    nf.append(cf >> DIVSTEP_BITS)
+    ng.append(cg >> DIVSTEP_BITS)
+    return nf, ng
+
+
+def _update_de_30(d, e, u, v, q, r):
+    """(d, e) <- (u d + v e, q d + r e) / 2^30 mod p, with d and e kept in
+    (-2p, p): p is added once for each negative input, then the multiple
+    of p that clears the low 30 bits."""
+    sd, se = d[-1] >> 63, e[-1] >> 63
+    md = (u & sd) + (v & se)
+    me = (q & sd) + (r & se)
+    cd = u * d[0] + v * e[0]
+    ce = q * d[0] + r * e[0]
+    md = md - ((_P_INV30 * (cd & _M30) + md) & _M30)
+    me = me - ((_P_INV30 * (ce & _M30) + me) & _M30)
+    nd, ne = [], []
+    for i in range(DIVSTEP_LIMBS):
+        if i:
+            cd = cd + u * d[i] + v * e[i]
+            ce = ce + q * d[i] + r * e[i]
+        if _P_S30[i]:
+            cd = cd + _P_S30[i] * md
+            ce = ce + _P_S30[i] * me
+        if i:
+            nd.append(cd & _M30)
+            ne.append(ce & _M30)
+        cd = cd >> DIVSTEP_BITS
+        ce = ce >> DIVSTEP_BITS
+    nd.append(cd)
+    ne.append(ce)
+    return nd, ne
+
+
+def _carry_30(v):
+    for i in range(DIVSTEP_LIMBS - 1):
+        v[i + 1] = v[i + 1] + (v[i] >> DIVSTEP_BITS)
+        v[i] = v[i] & _M30
+    return v
+
+
+def _normalize_30(d, sign):
+    """d in (-2p, p), negated where sign < 0 -> 9 limbs of d mod p."""
+    add = d[-1] >> 63
+    neg = sign >> 63
+    d = _carry_30([((x + (pl & add)) ^ neg) - neg
+                   for x, pl in zip(d, _P_S30)])
+    add = d[-1] >> 63
+    return _carry_30([x + (pl & add) for x, pl in zip(d, _P_S30)])
+
+
+def inv_mod_divsteps(a):
+    """The inverse of canonical a mod p (0 maps to 0) by division steps,
+    with the limbs, batches and matrices of the CUDA inversion kernel.
+    Starts from f = p, g = a, d = 0, e = 1 (d a = f, e a = g mod p up to
+    the powers of two divided out) and runs batches until every g is 0
+    (at most DIVSTEP_BATCH_CAP, which is proven enough); then f = +-1 and the inverse is +-d. Returns (inverse (16, *batch),
+    batches (*batch) int64: how many batches each lane's g needed)."""
+    g = _to_limbs30(a)
+    zero = torch.zeros_like(g[0])
+    f = [zero + pl for pl in _P_S30]
+    d = [zero] * DIVSTEP_LIMBS
+    e = [zero + 1] + [zero] * (DIVSTEP_LIMBS - 1)
+    zeta = zero - 1
+    batches = zero.clone()
+    for _ in range(DIVSTEP_BATCH_CAP):
+        live = torch.stack(g).ne(0).any(dim=0)
+        if not bool(live.any()):
+            break
+        batches += live
+        zeta, u, v, q, r = _divsteps_30(zeta, f[0], g[0])
+        d, e = _update_de_30(d, e, u, v, q, r)
+        f, g = _update_fg_30(f, g, u, v, q, r)
+    return _from_limbs30(_normalize_30(d, f[-1])), batches
+
+
+# ---------------------------------------------------------------------------
 # Prefix extraction (probe keys)
 
 

@@ -9,8 +9,12 @@ nonzero:
 1. build the CUDA kernels of bsgs_tpu_torch/csrc with nvcc (sm_90a);
 2. run each of the six epoch and table kernels and its plain PyTorch
    version on the card at the main path's shapes and require bit-identical
-   outputs, timing both; time one epoch phase at chain lengths 4, 8 and 16
-   and require the same key plane from each;
+   outputs, timing both; hold the inversion kernel at 2,048, 16,384 and
+   131,072 lanes too (edge values planted) against the exponentiation and
+   against the plain version of its own algorithm, and require
+   x * inv(x) == 1 at the widest; time one epoch phase at chain lengths 8
+   and 16 with the totals inverted after one fold and unfolded, and
+   require the same key plane from each;
 3. build the w=2^26 baby table (htsz=20, 128-slot rows, tile 2^18);
 4. solve a planted key in the second epoch at N=2^18, T=16, 4 phases,
    3 epochs in flight; read the launch counts of phases 3-4;
@@ -19,7 +23,8 @@ nonzero:
    odd length) and on synthetic 512-slot and 20-slot tables,
    bit-identical, timed; build the same table streamed and require the
    one-shot build's entries, one for one;
-6. time 8-epoch scans of a pubkey with no key in range (giant-steps/s)
+6. time 8-epoch scans of a pubkey with no key in range (giant-steps/s),
+   requiring the launches per epoch that the inversion tree should make,
    and profile a short one (device time by kernel, busy share, the host's
    waits for the device);
 7. free that table and drive the streamed path: hold the six kernels
@@ -44,6 +49,7 @@ import collections
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -60,8 +66,27 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # add_mod / sub_mod = a 9-instruction chain, a second chain, an 8-way select.
 OPS_MUL = 206
 OPS_ADD = 26
-# inv_mod: 255 squarings and 13 + popcount(0xFFFFFC2D) multiplies
-OPS_FERMAT = (255 + 13 + bin(0xFFFFFC2D).count("1")) * OPS_MUL
+# The inversion (csrc/modinv.cuh), per batch of 30 division steps: 21 a
+# step and 290 for the two matrix applications and the loop's test, as
+# nvcc 12.8 compiles the loop (compiled_batch_ops reads the built library
+# and the run fails if the count differs); once per inversion, the limb
+# conversions and the final normalisation. The batches are counted from the run's own inputs. Its
+# instructions are spread over the integer pipe (logic, add, shift) and the
+# multiplier pipe (IMAD, which also takes moves, adds and shifts by a
+# constant), 64 lanes per SM each, so its bound is the rate of both, which
+# is what 4 schedulers x 32 lanes per SM can start; the multiply chains of
+# the other kernels run on the one pipe that INT32_OPS_PER_S counts.
+OPS_INV_BATCH = 30 * 21 + 290
+OPS_INV_ONCE = 290
+INV_OPS_PER_S = 2 * INT32_OPS_PER_S
+P_INT = 2**256 - 2**32 - 977
+# Kernel launches of one epoch of the main path (T=16 in 4 phases): per
+# phase one forward pass, one inversion of its chain totals (no Montgomery
+# fold), one backward pass and two probes, plus one probe of the epoch's
+# centers.
+LAUNCHES_PER_EPOCH = {"epoch_fwd": 4, "epoch_bwd": 4, "mont_fwd": 0,
+                      "mont_bwd": 0, "fermat": 4, "add_const": 0,
+                      "probe_rows": 9}
 
 TPU_KERNEL = {
     "epoch_fwd": "bsgs_tpu/ops/epoch_kernel.py:48",
@@ -87,10 +112,10 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
+    """Mean device time of fn() over reps launches. Every caller has run
+    fn once already, to compare its result: that was the warm-up."""
     import torch
 
-    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -113,22 +138,126 @@ def random_planes(rng, rows: int, m: int, device):
     return torch.from_numpy(v.astype(np.int32)).to(device)
 
 
+def plant_edge_lanes(v):
+    """Overwrite the first lanes of a (16, m) plane with the inversion's
+    edge values: 0, 1, 2, p-1, p-2, 2^255, one value with every high limb
+    zero and one with every low limb zero."""
+    import torch
+
+    edge = (0, 1, 2, P_INT - 1, P_INT - 2, 1 << 255, 0x1234, 0xABCD << 240)
+    limbs = [[(x >> (16 * i)) & 0xFFFF for x in edge] for i in range(16)]
+    v[:, :len(edge)] = torch.tensor(limbs, dtype=v.dtype, device=v.device)
+    return v
+
+
+def inversion_bound(m: int, batches):
+    """(operations, bytes) of inverting m lanes whose division steps need
+    the given batches per lane: what this input needs, not the cap."""
+    return (int(batches.sum()) * OPS_INV_BATCH + m * OPS_INV_ONCE,
+            2 * 64 * m)
+
+
 def build_kernels() -> float:
     from bsgs_tpu_torch.ops import _cuda
 
     t0 = time.time()
-    _cuda.build(verbose=True)
+    libs = _cuda.build(verbose=True)
     _cuda._load()
-    return time.time() - t0
+    took = time.time() - t0
+    loop = compiled_batch_ops(libs)
+    if loop != OPS_INV_BATCH:
+        raise AssertionError(
+            f"the inversion's batch loop compiled to {loop} instructions; "
+            f"its bound counts {OPS_INV_BATCH}")
+    log(f"sass: one batch of the inversion is {loop} instructions as "
+        f"compiled, the count its bound uses")
+    return took
 
 
-def check_kernels(device, label: str, htsz: int, m_tab: int, m_mont=None,
-                  T: int = 4, N: int = 1 << 18):
+def compiled_batch_ops(libs) -> int:
+    """The SASS instructions of the inversion kernel's one loop (a batch
+    of 30 division steps, unrolled, and its matrix applications), from
+    cuobjdump -sass of the built library: the span of its backward
+    branch."""
+    from bsgs_tpu_torch.ops import _cuda
+
+    lib = next(p for p in libs if p.name.startswith("libepoch_kernels"))
+    exe = Path(_cuda._nvcc()).with_name("cuobjdump")  # the toolkit's own
+    out = subprocess.run([str(exe), "-sass", str(lib)],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    body = out.stdout.partition("modinv_kernel")[2].partition("Function :")[0]
+    instr = [(int(a, 16), t) for a, t in re.findall(
+        r"^\s*/\*([0-9a-f]{4,})\*/\s+(\S[^;]*);", body, flags=re.M)]
+    loop = 0
+    for addr, text in instr:
+        target = re.search(r"\bBRA\b.*\b0x([0-9a-f]+)", text)
+        if target and int(target.group(1), 16) <= addr:
+            loop = max(loop, sum(int(target.group(1), 16) <= a <= addr
+                                 for a, _ in instr))
+    return loop
+
+
+def check_inversion(device, widths) -> list:
+    """The inversion kernel alone at several widths, edge values planted:
+    bit-identical to the exponentiation (fermat_plain) and to the plain
+    version of its own algorithm (which also says how many batches each
+    lane needs), 0 -> 0, and at the widest width x * inv(x) == 1 on every
+    nonzero lane through the plain multiply. Timed at each width: below
+    about 16,900 lanes (a warp on each of the 528 schedulers) the time is
+    one inversion's latency, above it the instruction rate."""
+    import numpy as np
+    import torch
+
+    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
+
+    rng = np.random.default_rng(SEED + 5)
+    out = []
+    for m in widths:
+        x = plant_edge_lanes(random_planes(rng, 16, m, device))
+        got = EK.fermat(x)
+        torch.cuda.synchronize()
+        steps, batches = EK.fermat_divsteps_plain(x)
+        if not torch.equal(got, steps):
+            raise AssertionError(f"inversion at m={m}: kernel differs from "
+                                 f"the plain version of its algorithm")
+        if not torch.equal(got, EK.fermat_plain(x)):
+            raise AssertionError(f"inversion at m={m}: kernel differs from "
+                                 f"a^(p-2)")
+        if int(got[:, 0].abs().max()) != 0:
+            raise AssertionError("inversion: 0 does not map to 0")
+        if int(batches.max()) > PL.DIVSTEP_BATCH_CAP:
+            raise AssertionError(f"inversion: {int(batches.max())} batches")
+        if m == max(widths):
+            prod = PL.mul_mod(x.long(), got.long())
+            one = (prod[0] == 1) & (prod[1:] == 0).all(dim=0)
+            nonzero = ~PL.is_zero(x.long())[0]
+            if not bool(one[nonzero].all()) or int(nonzero.sum()) != m - 1:
+                raise AssertionError("inversion: x * inv(x) != 1")
+        ms = cuda_ms(lambda: EK.fermat(x), reps=20)
+        ops, nbytes = inversion_bound(m, batches)
+        bound_ms = 1e3 * max(ops / INV_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        out.append(dict(m=m, ms=ms, bound_ms=bound_ms,
+                        batches_max=int(batches.max()),
+                        batches_mean=float(batches.double().mean())))
+        log(f"kernel fermat (division steps), m={m}: bit-identical to "
+            f"a^(p-2) and to its own plain version, 0 -> 0"
+            f"{', x * inv(x) == 1 on every nonzero lane' * (m == max(widths))}"
+            f"; {ms:.4f} ms (bound {bound_ms:.4f} ms by operations); batches "
+            f"needed: {out[-1]['batches_mean']:.2f} mean, "
+            f"{out[-1]['batches_max']} max")
+    return out
+
+
+def check_kernels(device, label: str, htsz: int, m_tab: int,
+                  time_trees: bool, T: int = 4, N: int = 1 << 18):
     """Each kernel against its plain version at one path's shapes: one
-    epoch phase (T=4 centers x N offsets) with the path's bucket bits,
-    Montgomery passes of m_mont lanes (default: the phase's chain totals),
-    the Fermat width they recurse to, and one table pass of m_tab lanes
-    (the path's build tile) for add_const. Returns the per-kernel
+    epoch phase (T=4 centers x N offsets) with the path's bucket bits, the
+    inversion of that phase's chain totals (unfolded), and one table pass
+    of m_tab lanes (the path's build tile) for add_const and for the
+    Montgomery passes, which only the table build and the fills launch.
+    One phase must give the same key plane under each shape of the
+    inversion tree; time_trees also times them. Returns the per-kernel
     records."""
     import numpy as np
     import torch
@@ -145,12 +274,13 @@ def check_kernels(device, label: str, htsz: int, m_tab: int, m_mont=None,
     for t, j in ((0, 5), (1, N // 3), (T - 1, N - 1)):
         ox[:, j] = cx[:, t]
     m_tot = T * N // C
-    m_mont = m_mont or m_tot
+    m_mont, m_fermat = m_tab, m_tot
+    if m_mont <= EK.DIRECT_MAX or m_fermat > EK.DIRECT_MAX:
+        raise AssertionError(
+            f"the inversion tree is not the one measured: {m_mont} lanes "
+            f"would not fold, or {m_fermat} would")
     v_tot = random_planes(rng, 16, m_mont, device)
-    m_fermat = m_mont
-    while m_fermat > EK.FERMAT_MAX:
-        m_fermat = m_fermat // (C * W) * W
-    v_fermat = random_planes(rng, 16, m_fermat, device)
+    v_fermat = plant_edge_lanes(random_planes(rng, 16, m_fermat, device))
     xs = random_planes(rng, 16, m_tab, device)
     ys = random_planes(rng, 16, m_tab, device)
     inv = random_planes(rng, 16, m_tab, device)
@@ -162,6 +292,10 @@ def check_kernels(device, label: str, htsz: int, m_tab: int, m_mont=None,
     itot = EK.batch_inv_planar(tot)
     vpre, _ = EK.mont_fwd(v_tot, chunk_c=C, lanes_w=W)
     vitot = random_planes(rng, 16, m_mont // C, device)
+    inv_steps, batches = EK.fermat_divsteps_plain(v_fermat)
+    if not torch.equal(EK.fermat(v_fermat), inv_steps):
+        raise AssertionError("fermat: kernel differs from the plain version "
+                             "of its algorithm")
     torch.cuda.synchronize()
 
     # name: (kernel, plain version, int32 instructions, field elements read
@@ -190,13 +324,16 @@ def check_kernels(device, label: str, htsz: int, m_tab: int, m_mont=None,
         "fermat": (
             lambda: EK.fermat(v_fermat),
             lambda: EK.fermat_plain(v_fermat),
-            m_fermat * OPS_FERMAT, 2 * m_fermat, 0),
+            inversion_bound(m_fermat, batches)[0], 2 * m_fermat, 0),
         "add_const": (
             lambda: EK.add_const(xs, ys, inv, ccx, ccy),
             lambda: EK.add_const_plain(xs, ys, inv, ccx, ccy),
             m_tab * (4 * OPS_MUL + 6 * OPS_ADD), 5 * m_tab + 2,
             2 * m_tab * 4),
     }
+    shapes = {"epoch_fwd": f"T={T}, N={N}", "epoch_bwd": f"T={T}, N={N}",
+              "mont_fwd": f"m={m_mont}", "mont_bwd": f"m={m_mont}",
+              "fermat": f"m={m_fermat}", "add_const": f"m={m_tab}"}
     records = {}
     for name, (kern, plain, ops, elems, other) in cases.items():
         got = kern()
@@ -214,12 +351,12 @@ def check_kernels(device, label: str, htsz: int, m_tab: int, m_mont=None,
         if err:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs limb error {err})")
-        ms = cuda_ms(kern, reps=20 if name != "fermat" else 5)
+        ms = cuda_ms(kern, reps=20)
         plain_ms = cuda_ms(plain, reps=1)
         # bound_ms: the planes as the kernels take them, 16 int32 words
         # (64 B) per element; bound_ms_packed: the function's own floor,
         # 32 B per element
-        op_s = ops / INT32_OPS_PER_S
+        op_s = ops / (INV_OPS_PER_S if name == "fermat" else INT32_OPS_PER_S)
         byte_s = (64 * elems + other) / HBM_BYTES_PER_S
         packed_s = (32 * elems + other) / HBM_BYTES_PER_S
         bound_ms = 1e3 * max(op_s, byte_s)
@@ -230,25 +367,49 @@ def check_kernels(device, label: str, htsz: int, m_tab: int, m_mont=None,
             replaces=TPU_KERNEL[name], launches=0, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, bound_ms_packed=1e3 * max(op_s, packed_s),
-            bound_by_packed="operations" if op_s >= packed_s else "bytes")
-        log(f"kernel {name} [{label}]: bit-identical to plain; {ms:.4f} ms "
-            f"(plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
-            f"{bound_by}, {1e3 * max(op_s, packed_s):.4f} ms at 32 B per "
-            f"element); exact/doubling lanes included")
+            bound_by_packed="operations" if op_s >= packed_s else "bytes",
+            shape=shapes[name])
+        log(f"kernel {name} [{label}, {shapes[name]}]: bit-identical to "
+            f"plain; {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by}, "
+            f"{1e3 * max(op_s, packed_s):.4f} ms at 32 B per element); "
+            f"exact/doubling/edge lanes included")
         torch.cuda.synchronize()
+    records["fermat"].update(
+        batches_max=int(batches.max()),
+        batches_mean=float(batches.double().mean()))
 
-    # the chain length changes no output bit, only the time
-    keys = {}
-    for c in (4, 8, 16):
-        def phase(c=c):
-            return EK.epoch_landing_keys(cx, cy, ox, oy, htsz=htsz,
-                                         chunk_c=c, lanes_w=W)
-        keys[c] = phase()
-        log(f"chain length {c} [{label}]: epoch_landing_keys "
-            f"{cuda_ms(phase, 10):.4f} ms per phase (T={T}, N={N}, W={W}, "
-            f"htsz={htsz})")
-    if any(not torch.equal(keys[c], keys[C]) for c in keys):
-        raise AssertionError("key planes differ between chain lengths")
+    # The shape of the inversion tree and the chain length change no output
+    # bit, only the time: one phase at chain lengths 8 and 16, with the
+    # totals inverted after one fold and unfolded (16, unfolded: the path's).
+    def phase(c, direct_max):
+        pre_c, tot_c = EK.epoch_fwd(ox, cx, chunk_c=c, lanes_w=W)
+        inv_c = EK.batch_inv_planar(tot_c, chunk_c=c, lanes_w=W,
+                                    direct_max=direct_max)
+        return EK.epoch_bwd(ox, oy, cx, cy, pre_c, inv_c, htsz=htsz,
+                            chunk_c=c, lanes_w=W)
+
+    want = EK.epoch_landing_keys(cx, cy, ox, oy, htsz=htsz)
+    trees = []
+    for c, direct_max in ((8, 1 << 16), (8, 1 << 17), (16, 1 << 15),
+                          (C, EK.DIRECT_MAX)):
+        folds, m_inv = 0, T * N // c
+        while m_inv > direct_max:
+            folds, m_inv = folds + 1, m_inv // c
+        if not torch.equal(phase(c, direct_max), want):
+            raise AssertionError(f"key planes differ at chain length {c}, "
+                                 f"{folds} folds")
+        if not time_trees:
+            continue
+        ms = cuda_ms(lambda: phase(c, direct_max), 20)
+        trees.append(dict(chunk_c=c, folds=folds, m_inverted=m_inv, ms=ms))
+        log(f"tree [{label}]: chain length {c}, {folds} folds, {m_inv} "
+            f"lanes inverted: {ms:.4f} ms per phase (T={T}, N={N}, W={W}, "
+            f"htsz={htsz}), key plane equal")
+    if time_trees:
+        records["fermat"]["phase_ms_by_tree"] = trees
+    else:
+        log(f"tree [{label}]: key planes equal under all four shapes")
     torch.cuda.synchronize()
     return records
 
@@ -468,15 +629,22 @@ def read_launches(path: str, totals: dict) -> None:
                              f"path: {launches}")
 
 
-def timed_scans(solver, pub, pk: int, epochs: int, repeats: int):
+def timed_scans(solver, pub, pk: int, epochs: int, repeats: int,
+                residue_scan: bool = False):
     """Scans of a pubkey with no key in range, as bench.py times them:
     host clock around work that ends in a synchronise. Returns the rates
-    (giant-steps/s) and the last result."""
+    (giant-steps/s) and the last result. Unless its verification runs a
+    residue scan (which generates points), a scan must launch exactly
+    LAUNCHES_PER_EPOCH per epoch: the inversion once a phase and no
+    Montgomery pass, so a return to a deeper tree fails here."""
     import torch
+
+    from bsgs_tpu_torch.ops import _cuda
 
     cfg = solver.cfg
     rates = []
     for _ in range(repeats):
+        before = dict(_cuda.LAUNCHES)
         t0 = time.time()
         scan = solver.solve(pub, pk, pk + epochs * cfg.keys_per_epoch - 1,
                             max_epochs=epochs)
@@ -484,6 +652,14 @@ def timed_scans(solver, pub, pk: int, epochs: int, repeats: int):
         rates.append(scan.giant_steps / (time.time() - t0))
         if scan.key is not None or scan.epochs != epochs:
             raise AssertionError(f"unexpected scan result {scan}")
+        made = {k: n - before[k] for k, n in _cuda.LAUNCHES.items()}
+        want = {k: n * epochs for k, n in LAUNCHES_PER_EPOCH.items()}
+        if not residue_scan and made != want:
+            raise AssertionError(f"launches in {epochs} epochs: {made}, "
+                                 f"expected {want}")
+    if not residue_scan:
+        log(f"launches per epoch in each of these {repeats} scans of "
+            f"{epochs} epochs: {LAUNCHES_PER_EPOCH}")
     return rates, scan
 
 
@@ -543,7 +719,9 @@ def main() -> int:
 
     # 2. each epoch and table kernel against its plain version
     records = check_kernels(device, "w=2^26 shapes", htsz=20,
-                            m_tab=1 << 18)
+                            m_tab=1 << 18, time_trees=True)
+    records["fermat"]["widths"] = check_inversion(
+        device, (2048, 16384, 131072))
     torch.cuda.synchronize()
 
     # 3-4. the main path, counted: table build, solver set-up, planted solve
@@ -616,7 +794,7 @@ def main() -> int:
     # this path gives the six kernels other inputs: 24 bucket bits in the
     # key plane, and 2^20-lane tiles in the build and the residue scans
     records_big = check_kernels(device, "w=2^30 shapes", htsz=cfg.htsz,
-                                m_tab=1 << 20, m_mont=1 << 20)
+                                m_tab=1 << 20, time_trees=False)
     torch.cuda.synchronize()
     _cuda.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -703,7 +881,8 @@ def main() -> int:
     if lstats["residue_scans"] - before["residue_scans"] != 1:
         raise AssertionError(f"planted slot not scanned: {lstats}")
     before = dict(lstats)
-    rates_fp, scan_fp = timed_scans(solver, pub, pk, epochs=32, repeats=2)
+    rates_fp, scan_fp = timed_scans(solver, pub, pk, epochs=32, repeats=2,
+                                    residue_scan=True)
     scans_fp = lstats["residue_scans"] - before["residue_scans"]
     if (scan_fp.hits_checked != scan.hits_checked + 1
             or scans_fp != len(rates_fp)):

@@ -1,6 +1,6 @@
 """The port's epoch kernels (plain versions, on the CPU) against bsgs_tpu's
 Pallas kernels in interpret mode, bit for bit: the batch inversion on both
-sides of the Fermat limit, the add-const pass and the doubling fill, the
+sides of the direct width, the add-const pass and the doubling fill, the
 epoch key plane (exact lanes included) and the fused epoch's hit array."""
 
 import numpy as np
@@ -32,13 +32,15 @@ def _random_nonzero(rng, m):
 
 @pytest.mark.parametrize("m", [4096, 16384])
 def test_batch_inv_matches_jax(m):
-    """m=4096 takes the Fermat kernel directly; m=16384 > FERMAT_MAX folds
-    through the Montgomery kernels first (C=4, W=128) down to 4096 chain
-    totals, which the Fermat kernel inverts at the same width."""
+    """With the direct width forced to 8192, m=4096 goes to the inversion
+    unfolded; m=16384 folds through the Montgomery passes first (C=4,
+    W=128) down to 4096 chain totals, which are inverted at that width.
+    (On the CPU the inversion is its plain version, a^(p-2).)"""
     v = _random_nonzero(np.random.default_rng(m), m)
     want = np.asarray(JEK.batch_inv_planar(jnp.asarray(v), chunk_c=4,
                                            lanes_w=128, interpret=True))
-    got = EK.batch_inv_planar(_i32(v), chunk_c=4, lanes_w=128)
+    got = EK.batch_inv_planar(_i32(v), chunk_c=4, lanes_w=128,
+                              direct_max=8192)
     np.testing.assert_array_equal(convert.u32(got), want)
     # an independent check of a few lanes
     for lane in (0, 1, m - 1):
