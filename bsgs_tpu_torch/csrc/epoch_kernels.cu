@@ -1,11 +1,13 @@
 // The giant-step epoch and table-generation kernels for Hopper (sm_90a).
 //
 // Hand-written counterparts of the six Pallas kernels of
-// bsgs_tpu/ops/epoch_kernel.py. Each is one thread per chain or per lane,
-// over field.cuh; the Python wrappers (bsgs_tpu_torch/ops/epoch_kernel.py)
-// check shapes, allocate every output and launch on PyTorch's current
-// stream. Each C entry returns cudaGetLastError() so a refused launch
-// raises in the wrapper.
+// bsgs_tpu/ops/epoch_kernel.py, over field.cuh. The epoch passes, the
+// inversion and add_const are one thread per chain or per lane; the
+// Montgomery passes spread a chain over many threads (mont.cuh). The
+// Python wrappers (bsgs_tpu_torch/ops/epoch_kernel.py) check shapes,
+// allocate every output and launch on PyTorch's current stream. Each C
+// entry returns cudaGetLastError() so a refused launch raises in the
+// wrapper.
 //
 // What bounds them: a 256-bit modular multiply is about 206 32-bit integer
 // instructions (136 for the mad.lo/mad.hi product rows, the rest for the
@@ -20,10 +22,10 @@
 //
 // Chains and lanes: a chain is C elements spaced W apart inside a block of
 // C*W columns, as in the Pallas kernels (the TPU walked a block's C chunks
-// of W lanes in order). Here thread g owns lane g % W of one block, so a
-// warp reads 32 neighbouring columns of each limb row: every load and
-// store is coalesced. The chain length C is the wrapper's choice: shorter
-// chains mean more threads in flight per SM.
+// of W lanes in order). In the epoch passes thread g owns lane g % W of one
+// block, so a warp reads 32 neighbouring columns of each limb row: every
+// load and store is coalesced. The chain length C is the wrapper's choice:
+// shorter chains mean more threads in flight per SM.
 
 #include <cuda_runtime.h>
 
@@ -31,6 +33,7 @@
 
 #include "field.cuh"
 #include "modinv.cuh"
+#include "mont.cuh"
 
 using bsgs::Fe;
 
@@ -131,48 +134,6 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-// Replaces bsgs_tpu/ops/epoch_kernel.py:_mont_fwd_kernel: thread g walks
-// chain g (lane g % W of block g / W), writing the exclusive running
-// products of nonzero v and the chain total. Bound: bytes.
-__global__ void __launch_bounds__(kBlock)
-    mont_fwd_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ pre,
-                    int32_t* __restrict__ tot, int M, int C, int W) {
-  const long long threads = (long long)(M / (C * W)) * W;
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= threads) return;
-  const long long b = g / W;
-  const long long base = b * C * W + (g - b * W);
-  Fe run = bsgs::fe_one();
-  for (int c = 0; c < C; ++c) {
-    const long long col = base + (long long)c * W;
-    bsgs::fe_store(pre, M, col, run);
-    run = bsgs::mul_mod(run, bsgs::fe_load(v, M, col));
-  }
-  bsgs::fe_store(tot, threads, g, run);
-}
-
-// Replaces bsgs_tpu/ops/epoch_kernel.py:_mont_bwd_kernel: thread g walks
-// chain g backwards; each inverse is the running inverse times the
-// element's exclusive prefix. Bound: bytes.
-__global__ void __launch_bounds__(kBlock)
-    mont_bwd_kernel(const int32_t* __restrict__ v,
-                    const int32_t* __restrict__ pre,
-                    const int32_t* __restrict__ itot,
-                    int32_t* __restrict__ out, int M, int C, int W) {
-  const long long threads = (long long)(M / (C * W)) * W;
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= threads) return;
-  const long long b = g / W;
-  const long long base = b * C * W + (g - b * W);
-  Fe run = bsgs::fe_load(itot, threads, g);
-  for (int i = 0; i < C; ++i) {
-    const long long col = base + (long long)(C - 1 - i) * W;
-    bsgs::fe_store(out, M, col,
-                   bsgs::mul_mod(run, bsgs::fe_load(pre, M, col)));
-    run = bsgs::mul_mod(run, bsgs::fe_load(v, M, col));
-  }
-}
-
 // Replaces bsgs_tpu/ops/epoch_kernel.py:_fermat_kernel: one thread per
 // element, the same function (the canonical inverse, 0 -> 0) by batched
 // division steps in place of the 294 dependent multiplies of a^(p-2)
@@ -226,6 +187,68 @@ __global__ void __launch_bounds__(kBlock)
   prefix[(long long)M + g] = (int32_t)xr.v[0];
 }
 
+// The Montgomery passes (mont.cuh), launched for the segment length L.
+template <bool kPoints>
+void mont_fwd_launch(int L, const int32_t* v, const int32_t* ys,
+                     const int32_t* cx, int32_t* pre, int32_t* tot,
+                     long long M, long long T, int W, dim3 grid, dim3 block,
+                     cudaStream_t st) {
+  switch (L) {
+    case 1:
+      bsgs::mont_fwd_kernel<1, kPoints>
+          <<<grid, block, 0, st>>>(v, ys, cx, pre, tot, M, T, W);
+      break;
+    case 2:
+      bsgs::mont_fwd_kernel<2, kPoints>
+          <<<grid, block, 0, st>>>(v, ys, cx, pre, tot, M, T, W);
+      break;
+    default:
+      bsgs::mont_fwd_kernel<4, kPoints>
+          <<<grid, block, 0, st>>>(v, ys, cx, pre, tot, M, T, W);
+  }
+}
+
+template <bool kPoints>
+void mont_bwd_launch(int L, const int32_t* v, const int32_t* ys,
+                     const int32_t* cx, const int32_t* pre,
+                     const int32_t* itot, int32_t* out, long long M,
+                     long long T, int W, dim3 grid, dim3 block,
+                     cudaStream_t st) {
+  switch (L) {
+    case 1:
+      bsgs::mont_bwd_kernel<1, kPoints>
+          <<<grid, block, 0, st>>>(v, ys, cx, pre, itot, out, M, T, W);
+      break;
+    case 2:
+      bsgs::mont_bwd_kernel<2, kPoints>
+          <<<grid, block, 0, st>>>(v, ys, cx, pre, itot, out, M, T, W);
+      break;
+    default:
+      bsgs::mont_bwd_kernel<4, kPoints>
+          <<<grid, block, 0, st>>>(v, ys, cx, pre, itot, out, M, T, W);
+  }
+}
+
+// Grid and block of a pass over M columns in chains of C spaced W apart, S
+// segments a chain, and T, the totals' width (blocks * W); false for a
+// layout the kernels do not take: W a multiple of 32, S <= 16 and
+// C = S * L with L in {1, 2, 4}. M may be any width: the last block of
+// chains is padded with ones.
+bool mont_shape(int M, int C, int W, int S, dim3& grid, dim3& block,
+                long long& T) {
+  if (M <= 0 || W <= 0 || W % bsgs::kMontLanes || S < 1 ||
+      S > bsgs::kMontMaxSegments || C % S)
+    return false;
+  const int L = C / S;
+  if (L != 1 && L != 2 && L != 4) return false;
+  const long long span = (long long)C * W;
+  const long long blocks = (M + span - 1) / span;
+  T = blocks * W;
+  grid = dim3((unsigned)(blocks * (W / bsgs::kMontLanes)));
+  block = dim3(bsgs::kMontLanes, S);
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -251,20 +274,42 @@ int bsgs_epoch_bwd(const void* ox, const void* oy, const void* cx,
   return (int)cudaGetLastError();
 }
 
-int bsgs_mont_fwd(const void* v, void* pre, void* tot, int M, int C, int W,
-                  void* stream) {
-  const long long threads = (long long)(M / (C * W)) * W;
-  mont_fwd_kernel<<<grid_for(threads), kBlock, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)v, (int32_t*)pre, (int32_t*)tot, M, C, W);
+// v is the plane; or, with ys != nullptr (the points entry), v is the
+// tile's xs and cx the step column's x.
+int bsgs_mont_fwd(const void* v, const void* ys, const void* cx, void* pre,
+                  void* tot, int M, int C, int W, int S, void* stream) {
+  dim3 grid, block;
+  long long T;
+  if (!mont_shape(M, C, W, S, grid, block, T))
+    return (int)cudaErrorInvalidValue;
+  if (ys)
+    mont_fwd_launch<true>(C / S, (const int32_t*)v, (const int32_t*)ys,
+                          (const int32_t*)cx, (int32_t*)pre, (int32_t*)tot,
+                          M, T, W, grid, block, (cudaStream_t)stream);
+  else
+    mont_fwd_launch<false>(C / S, (const int32_t*)v, nullptr, nullptr,
+                           (int32_t*)pre, (int32_t*)tot, M, T, W, grid,
+                           block, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
-int bsgs_mont_bwd(const void* v, const void* pre, const void* itot,
-                  void* out, int M, int C, int W, void* stream) {
-  const long long threads = (long long)(M / (C * W)) * W;
-  mont_bwd_kernel<<<grid_for(threads), kBlock, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)v, (const int32_t*)pre, (const int32_t*)itot,
-      (int32_t*)out, M, C, W);
+int bsgs_mont_bwd(const void* v, const void* ys, const void* cx,
+                  const void* pre, const void* itot, void* out, int M, int C,
+                  int W, int S, void* stream) {
+  dim3 grid, block;
+  long long T;
+  if (!mont_shape(M, C, W, S, grid, block, T))
+    return (int)cudaErrorInvalidValue;
+  if (ys)
+    mont_bwd_launch<true>(C / S, (const int32_t*)v, (const int32_t*)ys,
+                          (const int32_t*)cx, (const int32_t*)pre,
+                          (const int32_t*)itot, (int32_t*)out, M, T, W, grid,
+                          block, (cudaStream_t)stream);
+  else
+    mont_bwd_launch<false>(C / S, (const int32_t*)v, nullptr, nullptr,
+                           (const int32_t*)pre, (const int32_t*)itot,
+                           (int32_t*)out, M, T, W, grid, block,
+                           (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

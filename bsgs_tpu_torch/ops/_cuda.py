@@ -36,8 +36,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "bsgs_epoch_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bsgs_epoch_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "bsgs_mont_fwd": [_P, _P, _P, _I, _I, _I, _P],
-    "bsgs_mont_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "bsgs_mont_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bsgs_mont_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bsgs_modinv": [_P, _P, _I, _P],
     "bsgs_add_const": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "bsgs_probe_rows": [_P, _P, _P, _P, _I, _I, _P],

@@ -4,20 +4,24 @@ Counterpart of ``bsgs_tpu/ops/epoch_kernel.py``. Its six Pallas kernels
 are CUDA kernels here (``csrc/epoch_kernels.cu``); each has a wrapper below
 and, beside it, a plain PyTorch version of the same function:
 
-=============  ====================================  ======================
-wrapper        replaces (bsgs_tpu/ops/epoch_kernel)  computes
-=============  ====================================  ======================
-epoch_fwd      _fwd_kernel                           d = Ox - Mx prefixes
-epoch_bwd      _bwd_kernel                           (8, T*N) key plane
-mont_fwd       _mont_fwd_kernel                      Montgomery prefixes
-mont_bwd       _mont_bwd_kernel                      Montgomery inverses
-fermat         _fermat_kernel                        1/a per element, 0 -> 0
-add_const      _addc_kernel                          (x, y) + C per lane
-=============  ====================================  ======================
+===================  ====================================  ==================
+wrapper              replaces (bsgs_tpu/ops/epoch_kernel)  computes
+===================  ====================================  ==================
+epoch_fwd            _fwd_kernel                           d = Ox - Mx
+                                                           prefixes
+epoch_bwd            _bwd_kernel                           (8, T*N) key plane
+mont_fwd,            _mont_fwd_kernel                      Montgomery
+mont_fwd_points                                            prefixes
+mont_bwd,            _mont_bwd_kernel                      Montgomery
+mont_bwd_points                                            inverses
+fermat               _fermat_kernel                        1/a, 0 -> 0
+add_const            _addc_kernel                          (x, y) + C
+===================  ====================================  ==================
 
 Dispatch: a CUDA tensor launches the kernel (a failed build or launch
 raises), a CPU tensor runs the plain version; nothing else is accepted and
-nothing falls back. Each launch adds one to ``_cuda.LAUNCHES[name]``.
+nothing falls back. Each launch adds one to ``_cuda.LAUNCHES[name]`` (both
+entries of a Montgomery kernel count under its name).
 
 Planes are ``(16, M)`` int32 tensors of 16-bit limbs; key planes and
 prefixes are int32 tensors holding the uint32 bits of the JAX package's.
@@ -26,20 +30,30 @@ A chain is ``chunk_c`` elements spaced ``lanes_w`` apart inside a block of
 ``chunk_c * lanes_w`` columns, as in the Pallas kernels. The chain layout
 changes the intermediate ``pre``/``tot`` planes, never a final inverse,
 key plane or point: those are canonical, so every chain length gives the
-same bits. The TPU's 64 x 256 chose long chains for VMEM; on the card one
-thread walks a chain. ``CHUNK_C`` = 16 was measured best on an H100 among
-4, 8, 16 and 32: at the bench geometry a phase of T*N = 2^20 pairs leaves
-65,536 chain totals, as many threads, and one inversion launch.
+same bits. The TPU's 64 x 256 chose long chains for VMEM. On the card one
+thread walks an epoch chain: ``CHUNK_C`` = 16 was measured best on an H100
+among 4, 8, 16 and 32, so a phase of T*N = 2^20 pairs leaves 65,536 chain
+totals, as many threads, and one inversion launch.
 
 The inversion (``fermat``) keeps the name of the TPU kernel it replaces
 and its function, the canonical a^(p-2); on the card it runs batched
 division steps (``csrc/modinv.cuh``) at a seventh of the exponentiation's
 latency. So ``batch_inv_planar`` hands a batch of up to ``DIRECT_MAX``
-lanes to it unfolded: an epoch launches no Montgomery pass, and the table
-tiles (2^18, 2^20 lanes) fold once.
+lanes to it unfolded: an epoch launches no Montgomery pass.
+
+The table's tile advance (``add_const_planar``) folds once, in chains of
+``TILE_CHUNK_C``, and its Montgomery kernels (``csrc/mont.cuh``) spread
+each chain over ``mont_segments`` threads of ``MONT_SEG_LEN`` positions
+with a scan in shared memory. Their points entries (``mont_fwd_points``,
+``mont_bwd_points``) form the denominators from the tile's points, so a
+tile advance is four launches: forward pass, inversion of the chain
+totals, backward pass, add-const. ``mont_fwd_segmented_plain`` and
+``mont_bwd_segmented_plain`` repeat the kernels' split in plain PyTorch.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -50,6 +64,12 @@ from . import _cuda, ec, field as F, planar as P
 CHUNK_C = 16
 LANES_W = 256
 DIRECT_MAX = 1 << 16  # widest batch that the inversion kernel takes unfolded
+# The table tile's one fold: chains of TILE_CHUNK_C, MONT_SEG_LEN positions
+# a thread. Chosen on an H100 by chip_smoke.py's sweep_mont among chains of
+# 4-64 and 1-4 positions a thread (PERF.md, the layout sweep).
+TILE_CHUNK_C = 16
+MONT_SEG_LEN = 2
+MONT_MAX_SEGMENTS = 16  # threads per chain at most (blocks of 32 x 16)
 FILL_SEED = 1024  # host-exact points that start a planar doubling fill
 
 _I32 = torch.int32
@@ -191,7 +211,32 @@ def epoch_bwd(ox, oy, cx, cy, pre, itot, *, htsz: int, chunk_c: int,
 # _mont_bwd_kernel, _fermat_kernel)
 
 
+def mont_segments(chunk_c: int) -> int:
+    """How many threads (segments) the kernels spread a chain of chunk_c
+    over: MONT_SEG_LEN positions each, at most MONT_MAX_SEGMENTS."""
+    return min(MONT_MAX_SEGMENTS, max(1, chunk_c // MONT_SEG_LEN))
+
+
+def _segment_len(chunk_c: int, segments: int) -> int:
+    if segments < 1 or chunk_c % segments:
+        raise ValueError(f"a chain of {chunk_c} does not split into "
+                         f"{segments} segments")
+    return chunk_c // segments
+
+
+def _check_mont_layout(chunk_c: int, lanes_w: int, segments: int) -> None:
+    """The layouts the kernels take (csrc/epoch_kernels.cu mont_shape)."""
+    seg = _segment_len(chunk_c, segments)
+    if (lanes_w % 32 or segments > MONT_MAX_SEGMENTS
+            or seg not in (1, 2, 4)):
+        raise ValueError(
+            f"the Montgomery kernels take W a multiple of 32, at most "
+            f"{MONT_MAX_SEGMENTS} segments of 1, 2 or 4 positions (got "
+            f"C={chunk_c}, W={lanes_w}, S={segments})")
+
+
 def mont_fwd_plain(v, *, chunk_c: int, lanes_w: int):
+    """The serial walk of each chain, as the TPU kernel does it."""
     m = v.shape[1]
     blocks = _chains(m, chunk_c, lanes_w)
     vv = v.long().view(F.NLIMBS, blocks, chunk_c, lanes_w)
@@ -205,22 +250,56 @@ def mont_fwd_plain(v, *, chunk_c: int, lanes_w: int):
             run.reshape(F.NLIMBS, blocks * lanes_w).to(_I32))
 
 
+def mont_fwd_segmented_plain(v, *, chunk_c: int, lanes_w: int,
+                             segments: int):
+    """The kernel's split of each chain into segments, in plain PyTorch:
+    local exclusive prefixes and each segment's product, the inclusive
+    scan of the segment products in log2(segments) rounds, then each local
+    prefix times its segment's offset (the product of the segments before
+    it). Same outputs as mont_fwd_plain."""
+    m = v.shape[1]
+    blocks = _chains(m, chunk_c, lanes_w)
+    S, L = segments, _segment_len(chunk_c, segments)
+    vv = v.long().view(F.NLIMBS, blocks, S, L, lanes_w)
+    one = _ones(blocks * S * lanes_w, v.device).long().view(
+        F.NLIMBS, blocks, S, lanes_w)
+    loc = torch.empty_like(vv)
+    acc = one
+    for i in range(L):
+        loc[:, :, :, i] = acc
+        acc = P.mul_mod(acc, vv[:, :, :, i])
+    d = 1
+    while d < S:
+        nxt = acc.clone()
+        nxt[:, :, d:] = P.mul_mod(acc[:, :, :-d], acc[:, :, d:])
+        acc, d = nxt, 2 * d
+    off = torch.cat([one[:, :, :1], acc[:, :, :-1]], dim=2)
+    pre = P.mul_mod(off.unsqueeze(3), loc)
+    return (pre.reshape(F.NLIMBS, m).to(_I32),
+            acc[:, :, S - 1].reshape(F.NLIMBS, blocks * lanes_w).to(_I32))
+
+
 def mont_fwd(v, *, chunk_c: int, lanes_w: int):
     """Nonzero v (16, m) -> (pre (16, m), tot (16, blocks*W)): exclusive
-    running products along each chain and the chain totals."""
+    running products along each chain and the chain totals. The kernel
+    spreads a chain over mont_segments(chunk_c) threads."""
     if not _on_cuda(v):
         return mont_fwd_plain(v, chunk_c=chunk_c, lanes_w=lanes_w)
+    S = mont_segments(chunk_c)
+    _check_mont_layout(chunk_c, lanes_w, S)
     m = v.shape[1]
     blocks = _chains(m, chunk_c, lanes_w)
     pre = torch.empty_like(v)
     tot = torch.empty((F.NLIMBS, blocks * lanes_w), dtype=_I32,
                       device=v.device)
-    _cuda.launch("bsgs_mont_fwd", v, pre, tot, m, chunk_c, lanes_w)
+    _cuda.launch("bsgs_mont_fwd", v, None, None, pre, tot, m, chunk_c,
+                 lanes_w, S)
     _cuda.LAUNCHES["mont_fwd"] += 1
     return pre, tot
 
 
 def mont_bwd_plain(v, pre, itot, *, chunk_c: int, lanes_w: int):
+    """The serial walk back along each chain, as the TPU kernel does it."""
     m = v.shape[1]
     blocks = _chains(m, chunk_c, lanes_w)
     vv = v.long().view(F.NLIMBS, blocks, chunk_c, lanes_w)
@@ -233,14 +312,166 @@ def mont_bwd_plain(v, pre, itot, *, chunk_c: int, lanes_w: int):
     return out.reshape(F.NLIMBS, m).to(_I32)
 
 
+def mont_bwd_segmented_plain(v, pre, itot, *, chunk_c: int, lanes_w: int,
+                             segments: int):
+    """The kernel's backward split, in plain PyTorch: each segment's
+    product; q = the next segment's product (itot for the last) and its
+    inclusive suffix scan, which is the running inverse at each segment's
+    end; then the serial walk back over the segment. Same output as
+    mont_bwd_plain."""
+    m = v.shape[1]
+    blocks = _chains(m, chunk_c, lanes_w)
+    S, L = segments, _segment_len(chunk_c, segments)
+    vv = v.long().view(F.NLIMBS, blocks, S, L, lanes_w)
+    pr = pre.long().view(F.NLIMBS, blocks, S, L, lanes_w)
+    seg = vv[:, :, :, 0]
+    for i in range(1, L):
+        seg = P.mul_mod(seg, vv[:, :, :, i])
+    it = itot.long().view(F.NLIMBS, blocks, 1, lanes_w)
+    acc = torch.cat([seg[:, :, 1:], it], dim=2)
+    d = 1
+    while d < S:
+        nxt = acc.clone()
+        nxt[:, :, :S - d] = P.mul_mod(acc[:, :, :S - d], acc[:, :, d:])
+        acc, d = nxt, 2 * d
+    out = torch.empty_like(vv)
+    for i in reversed(range(L)):
+        out[:, :, :, i] = P.mul_mod(acc, pr[:, :, :, i])
+        acc = P.mul_mod(acc, vv[:, :, :, i])
+    return out.reshape(F.NLIMBS, m).to(_I32)
+
+
 def mont_bwd(v, pre, itot, *, chunk_c: int, lanes_w: int):
     """Each element's inverse from the inverted chain totals itot."""
     if not _on_cuda(v, pre, itot):
         return mont_bwd_plain(v, pre, itot, chunk_c=chunk_c, lanes_w=lanes_w)
+    S = mont_segments(chunk_c)
+    _check_mont_layout(chunk_c, lanes_w, S)
     m = v.shape[1]
-    _chains(m, chunk_c, lanes_w)
+    blocks = _chains(m, chunk_c, lanes_w)
+    if pre.shape != v.shape or itot.shape != (F.NLIMBS, blocks * lanes_w):
+        raise ValueError(f"pre {tuple(pre.shape)} / itot "
+                         f"{tuple(itot.shape)} do not fit v {tuple(v.shape)}")
     out = torch.empty_like(v)
-    _cuda.launch("bsgs_mont_bwd", v, pre, itot, out, m, chunk_c, lanes_w)
+    _cuda.launch("bsgs_mont_bwd", v, None, None, pre, itot, out, m, chunk_c,
+                 lanes_w, S)
+    _cuda.LAUNCHES["mont_bwd"] += 1
+    return out
+
+
+# The points entry: the table tile's denominators formed in the kernels.
+
+
+def tile_den_plain(xs, ys, cx):
+    """The denominators of add_const_planar: den = Cx - x, or 2y on the
+    doubling lanes x == Cx. (16, m) int64."""
+    x, cxl = xs.long(), cx.long()
+    diff = P.sub_mod(cxl, x)
+    return P.select(P.is_zero(diff), P.add_mod(ys.long(), ys.long()), diff)
+
+
+def _tile_blocks(m: int, chunk_c: int, lanes_w: int) -> int:
+    """Blocks of chains over m columns, the last one padded with ones."""
+    span = chunk_c * lanes_w
+    if chunk_c < 1 or lanes_w < 1 or m <= 0:
+        raise ValueError(f"{m} columns in chains of {chunk_c} x {lanes_w}")
+    return -(-m // span)
+
+
+def _padded(v, width: int):
+    """(16, m) -> (16, width) with ones in the new columns."""
+    pad = width - v.shape[1]
+    return torch.cat([v, _ones(pad, v.device).to(v.dtype)], dim=1) if pad \
+        else v
+
+
+def _check_points(xs, ys, cx) -> bool:
+    """The points entry's inputs: (16, m) xs and ys and a (16, 1) column,
+    on one device. True for the kernel, False for the plain version."""
+    on_cuda = _on_cuda(xs, ys, cx)
+    if (xs.shape[0] != F.NLIMBS or ys.shape != xs.shape
+            or cx.shape != (F.NLIMBS, 1)):
+        raise ValueError(f"points {tuple(xs.shape)} / {tuple(ys.shape)} and "
+                         f"column {tuple(cx.shape)} do not fit")
+    return on_cuda
+
+
+def mont_fwd_points_plain(xs, ys, cx, *, chunk_c: int, lanes_w: int,
+                          segments: Optional[int] = None):
+    """The points entry's plain version: tile_den_plain, padded with ones
+    to whole blocks of chains, then the serial walk (or, given segments,
+    the kernel's segmented one)."""
+    m = xs.shape[1]
+    width = _tile_blocks(m, chunk_c, lanes_w) * chunk_c * lanes_w
+    den = _padded(tile_den_plain(xs, ys, cx), width)
+    if segments is None:
+        pre, tot = mont_fwd_plain(den, chunk_c=chunk_c, lanes_w=lanes_w)
+    else:
+        pre, tot = mont_fwd_segmented_plain(den, chunk_c=chunk_c,
+                                            lanes_w=lanes_w,
+                                            segments=segments)
+    return pre[:, :m], tot
+
+
+def mont_bwd_points_plain(xs, ys, cx, pre, itot, *, chunk_c: int,
+                          lanes_w: int, segments: Optional[int] = None):
+    """The backward pass of mont_fwd_points_plain."""
+    m = xs.shape[1]
+    width = _tile_blocks(m, chunk_c, lanes_w) * chunk_c * lanes_w
+    den = _padded(tile_den_plain(xs, ys, cx), width)
+    pre = _padded(pre, width)
+    if segments is None:
+        out = mont_bwd_plain(den, pre, itot, chunk_c=chunk_c,
+                             lanes_w=lanes_w)
+    else:
+        out = mont_bwd_segmented_plain(den, pre, itot, chunk_c=chunk_c,
+                                       lanes_w=lanes_w, segments=segments)
+    return out[:, :m]
+
+
+def mont_fwd_points(xs, ys, cx, *, chunk_c: int, lanes_w: int,
+                    segments: Optional[int] = None):
+    """mont_fwd over the denominators of the tile (xs, ys) + C (cx the
+    step's (16, 1) x column, tile_den_plain), which the kernel forms in
+    registers: no den plane is written. Any width m: the last block of
+    chains is padded with ones. Returns (pre (16, m), tot (16, blocks*W)).
+    On the CPU it runs the plain version of the kernel's own split (a few
+    wide steps in place of chunk_c narrow ones: the CPU pays per step)."""
+    S = mont_segments(chunk_c) if segments is None else segments
+    if not _check_points(xs, ys, cx):
+        return mont_fwd_points_plain(xs, ys, cx, chunk_c=chunk_c,
+                                     lanes_w=lanes_w, segments=S)
+    m = xs.shape[1]
+    blocks = _tile_blocks(m, chunk_c, lanes_w)
+    _check_mont_layout(chunk_c, lanes_w, S)
+    pre = torch.empty_like(xs)
+    tot = torch.empty((F.NLIMBS, blocks * lanes_w), dtype=_I32,
+                      device=xs.device)
+    _cuda.launch("bsgs_mont_fwd", xs, ys, cx, pre, tot, m, chunk_c, lanes_w,
+                 S)
+    _cuda.LAUNCHES["mont_fwd"] += 1
+    return pre, tot
+
+
+def mont_bwd_points(xs, ys, cx, pre, itot, *, chunk_c: int, lanes_w: int,
+                    segments: Optional[int] = None):
+    """mont_bwd over the tile's denominators (mont_fwd_points): 1/den per
+    lane, (16, m)."""
+    S = mont_segments(chunk_c) if segments is None else segments
+    on_cuda = _check_points(xs, ys, cx)
+    _on_cuda(xs, pre, itot)
+    m = xs.shape[1]
+    blocks = _tile_blocks(m, chunk_c, lanes_w)
+    if pre.shape != xs.shape or itot.shape != (F.NLIMBS, blocks * lanes_w):
+        raise ValueError(f"pre {tuple(pre.shape)} / itot "
+                         f"{tuple(itot.shape)} do not fit {m} lanes")
+    if not on_cuda:
+        return mont_bwd_points_plain(xs, ys, cx, pre, itot, chunk_c=chunk_c,
+                                     lanes_w=lanes_w, segments=S)
+    _check_mont_layout(chunk_c, lanes_w, S)
+    out = torch.empty_like(xs)
+    _cuda.launch("bsgs_mont_bwd", xs, ys, cx, pre, itot, out, m, chunk_c,
+                 lanes_w, S)
     _cuda.LAUNCHES["mont_bwd"] += 1
     return out
 
@@ -284,9 +515,8 @@ def batch_inv_planar(v, *, chunk_c: int = CHUNK_C, lanes_w: int = LANES_W,
     C, W = chunk_c, lanes_w
     if m <= direct_max:
         return fermat(v)
-    pad = (-m) % (C * W)
-    if pad:
-        vp = torch.cat([v, _ones(pad, v.device)], dim=1)
+    if m % (C * W):
+        vp = _padded(v, -(-m // (C * W)) * C * W)
         return batch_inv_planar(vp, chunk_c=C, lanes_w=W,
                                 direct_max=direct_max)[:, :m]
     pre, tot = mont_fwd(v, chunk_c=C, lanes_w=W)
@@ -328,14 +558,27 @@ def add_const(xs, ys, inv, cx, cy):
     return x3, y3, prefix
 
 
-def add_const_planar(xs, ys, cx_col, cy_col):
+def tile_lanes(m: int, chunk_c: int) -> int:
+    """Lanes per block of chains for an add-const pass over m lanes:
+    LANES_W, or as few multiples of 32 as cover a narrow batch in one
+    block, so that padding a fill pass of 1,024 lanes does not make
+    LANES_W * chunk_c."""
+    return min(LANES_W, 32 * -(-m // (32 * chunk_c)))
+
+
+def add_const_planar(xs, ys, cx_col, cy_col, *,
+                     chunk_c: int = TILE_CHUNK_C):
     """Planar (16, m) batch + one common point C with one shared batch
-    inversion. Lanes with x == Cx are doublings (P == +C; generation never
-    meets P == -C). Returns (x3, y3, prefix_hi, prefix_lo)."""
-    x, cx = xs.long(), cx_col.long()
-    diff = P.sub_mod(cx, x)
-    den = P.select(P.is_zero(diff), P.add_mod(ys.long(), ys.long()), diff)
-    inv = batch_inv_planar(den.to(_I32))
+    inversion, any width m. Lanes with x == Cx are doublings (P == +C;
+    generation never meets P == -C). The inversion folds once, in chains of
+    chunk_c (tile_lanes apart), over denominators that the Montgomery
+    passes form from the points themselves: on the card mont_fwd, the
+    inversion of the chain totals, mont_bwd and add_const, four launches
+    and nothing else. Returns (x3, y3, prefix_hi, prefix_lo)."""
+    kw = dict(chunk_c=chunk_c, lanes_w=tile_lanes(xs.shape[1], chunk_c))
+    pre, tot = mont_fwd_points(xs, ys, cx_col, **kw)
+    itot = batch_inv_planar(tot)
+    inv = mont_bwd_points(xs, ys, cx_col, pre, itot, **kw)
     x3, y3, prefix = add_const(xs, ys, inv, cx_col, cy_col)
     return x3, y3, prefix[0], prefix[1]
 

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's two paths once on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the whole run below
+    python3 chip_smoke.py --builds   # only the two builds and a residue
+                                     # scan, timed, to compare two trees
 
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 nonzero:
 
-1. build the CUDA kernels of bsgs_tpu_torch/csrc with nvcc (sm_90a);
+1. build the CUDA kernels of bsgs_tpu_torch/csrc with nvcc (sm_90a), and
+   read the Montgomery kernels' registers and spills from the build;
 2. run each of the six epoch and table kernels and its plain PyTorch
    version on the card at the main path's shapes and require bit-identical
    outputs, timing both; hold the inversion kernel at 2,048, 16,384 and
@@ -14,7 +17,10 @@ nonzero:
    against the plain version of its own algorithm, and require
    x * inv(x) == 1 at the widest; time one epoch phase at chain lengths 8
    and 16 with the totals inverted after one fold and unfolded, and
-   require the same key plane from each;
+   require the same key plane from each; hold both entries of the two
+   Montgomery kernels against the serial and the segmented plain versions
+   at the table tile (doubling lanes planted, and a ragged width) and
+   time the tile's inversion under several chain layouts;
 3. build the w=2^26 baby table (htsz=20, 128-slot rows, tile 2^18);
 4. solve a planted key in the second epoch at N=2^18, T=16, 4 phases,
    3 epochs in flight; read the launch counts of phases 3-4;
@@ -36,8 +42,14 @@ nonzero:
    kernel against its plain version on the 8 GiB table, and time 32-epoch
    scans (giant-steps/s, hits checked, residue scans, host waits), without
    and with a planted slot that survives the hint to a residue scan;
-8. print the kernels' JSON line (every kernel launched on both paths),
+8. profile both table builds (device time by kernel, the builds' parts
+   timed one by one), one tile advance at each path's tile (exactly four
+   device launches) and one residue scan;
+9. print the kernels' JSON line (every kernel launched on both paths),
    the card's name and power limit, and the result line.
+
+Each path's launches must show one forward and one backward Montgomery
+pass per add-const pass: a tile advance or fill pass folds once.
 
 Needs one CUDA card; exits nonzero without one, or without the package
 beside it.
@@ -80,6 +92,8 @@ OPS_INV_BATCH = 30 * 21 + 290
 OPS_INV_ONCE = 290
 INV_OPS_PER_S = 2 * INT32_OPS_PER_S
 P_INT = 2**256 - 2**32 - 977
+# cycles of the spin kernel that cuda_ms queues launches behind
+QUEUE_CYCLES = 20_000_000
 # Kernel launches of one epoch of the main path (T=16 in 4 phases): per
 # phase one forward pass, one inversion of its chain totals (no Montgomery
 # fold), one backward pass and two probes, plus one probe of the epoch's
@@ -111,14 +125,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, queued: bool = True) -> float:
     """Mean device time of fn() over reps launches. Every caller has run
-    fn once already, to compare its result: that was the warm-up."""
+    fn once already, to compare its result: that was the warm-up.
+
+    queued: the device first spins for QUEUE_CYCLES (about 10 ms) while
+    the host queues every launch behind it, so the events time the
+    kernels back to back and not the host's Python between them (a
+    wrapper takes tens of microseconds of host time, more than a small
+    kernel runs). The plain versions, whose time is their host's, are
+    timed with queued=False."""
     import torch
 
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -157,7 +180,8 @@ def inversion_bound(m: int, batches):
             2 * 64 * m)
 
 
-def build_kernels() -> float:
+def build_kernels():
+    """Build and load the kernels; returns (seconds, shared libraries)."""
     from bsgs_tpu_torch.ops import _cuda
 
     t0 = time.time()
@@ -171,7 +195,37 @@ def build_kernels() -> float:
             f"its bound counts {OPS_INV_BATCH}")
     log(f"sass: one batch of the inversion is {loop} instructions as "
         f"compiled, the count its bound uses")
-    return took
+    return took, libs
+
+
+def mont_resources(libs) -> dict:
+    """Registers, stack, shared and local memory of each instantiation of
+    the Montgomery kernels, from cuobjdump -res-usage of the built library
+    ("mont_fwd L=4 points" etc.). The run fails if the instantiation the
+    path uses (MONT_SEG_LEN positions a thread) spills: local memory or a
+    stack."""
+    from bsgs_tpu_torch.ops import _cuda, epoch_kernel as EK
+
+    lib = next(p for p in libs if p.name.startswith("libepoch_kernels"))
+    exe = Path(_cuda._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(exe), "-res-usage", str(lib)],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    found = {}
+    for name, L, pts, body in re.findall(
+            r"Function \S*(mont_[a-z]+)_kernelILi(\d+)ELb([01])E\S*:\s*\n"
+            r"\s*([^\n]*)", out):
+        use = dict((k, int(v)) for k, v in re.findall(
+            r"(REG|STACK|SHARED|LOCAL):(\d+)", body))
+        found[f"{name} L={L}{' points' if pts == '1' else ''}"] = use
+    if len(found) != 12:
+        raise AssertionError(f"mont kernels in the build: {sorted(found)}")
+    for key, use in sorted(found.items()):
+        log(f"resources: {key}: {use}")
+    for key, use in found.items():
+        if f"L={EK.MONT_SEG_LEN}" in key and (use["LOCAL"] or use["STACK"]):
+            raise AssertionError(f"{key} spills: {use}")
+    return found
 
 
 def compiled_batch_ops(libs) -> int:
@@ -236,7 +290,7 @@ def check_inversion(device, widths) -> list:
                 raise AssertionError("inversion: x * inv(x) != 1")
         ms = cuda_ms(lambda: EK.fermat(x), reps=20)
         ops, nbytes = inversion_bound(m, batches)
-        bound_ms = 1e3 * max(ops / INV_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        bound_ms = bound(ops, nbytes, INV_OPS_PER_S)[0]
         out.append(dict(m=m, ms=ms, bound_ms=bound_ms,
                         batches_max=int(batches.max()),
                         batches_mean=float(batches.double().mean())))
@@ -255,10 +309,10 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
     epoch phase (T=4 centers x N offsets) with the path's bucket bits, the
     inversion of that phase's chain totals (unfolded), and one table pass
     of m_tab lanes (the path's build tile) for add_const and for the
-    Montgomery passes, which only the table build and the fills launch.
-    One phase must give the same key plane under each shape of the
-    inversion tree; time_trees also times them. Returns the per-kernel
-    records."""
+    Montgomery passes (check_mont), which only the table build and the
+    fills launch. One phase must give the same key plane under each shape
+    of the inversion tree; time_trees also times them. Returns the
+    per-kernel records."""
     import numpy as np
     import torch
 
@@ -274,12 +328,12 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
     for t, j in ((0, 5), (1, N // 3), (T - 1, N - 1)):
         ox[:, j] = cx[:, t]
     m_tot = T * N // C
-    m_mont, m_fermat = m_tab, m_tot
-    if m_mont <= EK.DIRECT_MAX or m_fermat > EK.DIRECT_MAX:
+    m_fermat = m_tot
+    if m_fermat > EK.DIRECT_MAX or m_tab // EK.TILE_CHUNK_C > EK.DIRECT_MAX:
         raise AssertionError(
-            f"the inversion tree is not the one measured: {m_mont} lanes "
-            f"would not fold, or {m_fermat} would")
-    v_tot = random_planes(rng, 16, m_mont, device)
+            f"the inversion tree is not the one measured: {m_fermat} chain "
+            f"totals of a phase, or {m_tab // EK.TILE_CHUNK_C} of a tile, "
+            f"would fold")
     v_fermat = plant_edge_lanes(random_planes(rng, 16, m_fermat, device))
     xs = random_planes(rng, 16, m_tab, device)
     ys = random_planes(rng, 16, m_tab, device)
@@ -290,8 +344,6 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
 
     pre, tot = EK.epoch_fwd(ox, cx, chunk_c=C, lanes_w=W)
     itot = EK.batch_inv_planar(tot)
-    vpre, _ = EK.mont_fwd(v_tot, chunk_c=C, lanes_w=W)
-    vitot = random_planes(rng, 16, m_mont // C, device)
     inv_steps, batches = EK.fermat_divsteps_plain(v_fermat)
     if not torch.equal(EK.fermat(v_fermat), inv_steps):
         raise AssertionError("fermat: kernel differs from the plain version "
@@ -312,15 +364,6 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
                                        chunk_c=C, lanes_w=W),
             T * N * (6 * OPS_MUL + 7 * OPS_ADD),
             2 * N + 2 * T + T * N + m_tot, 8 * T * N * 4),
-        "mont_fwd": (
-            lambda: EK.mont_fwd(v_tot, chunk_c=C, lanes_w=W),
-            lambda: EK.mont_fwd_plain(v_tot, chunk_c=C, lanes_w=W),
-            m_mont * OPS_MUL, 2 * m_mont + m_mont // C, 0),
-        "mont_bwd": (
-            lambda: EK.mont_bwd(v_tot, vpre, vitot, chunk_c=C, lanes_w=W),
-            lambda: EK.mont_bwd_plain(v_tot, vpre, vitot, chunk_c=C,
-                                      lanes_w=W),
-            m_mont * 2 * OPS_MUL, 3 * m_mont + m_mont // C, 0),
         "fermat": (
             lambda: EK.fermat(v_fermat),
             lambda: EK.fermat_plain(v_fermat),
@@ -332,7 +375,6 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
             2 * m_tab * 4),
     }
     shapes = {"epoch_fwd": f"T={T}, N={N}", "epoch_bwd": f"T={T}, N={N}",
-              "mont_fwd": f"m={m_mont}", "mont_bwd": f"m={m_mont}",
               "fermat": f"m={m_fermat}", "add_const": f"m={m_tab}"}
     records = {}
     for name, (kern, plain, ops, elems, other) in cases.items():
@@ -352,27 +394,24 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs limb error {err})")
         ms = cuda_ms(kern, reps=20)
-        plain_ms = cuda_ms(plain, reps=1)
+        plain_ms = cuda_ms(plain, reps=1, queued=False)
         # bound_ms: the planes as the kernels take them, 16 int32 words
         # (64 B) per element; bound_ms_packed: the function's own floor,
         # 32 B per element
-        op_s = ops / (INV_OPS_PER_S if name == "fermat" else INT32_OPS_PER_S)
-        byte_s = (64 * elems + other) / HBM_BYTES_PER_S
-        packed_s = (32 * elems + other) / HBM_BYTES_PER_S
-        bound_ms = 1e3 * max(op_s, byte_s)
-        bound_by = "operations" if op_s >= byte_s else "bytes"
+        rate = INV_OPS_PER_S if name == "fermat" else INT32_OPS_PER_S
+        bound_ms, bound_by = bound(ops, 64 * elems + other, rate)
+        packed_ms, packed_by = bound(ops, 32 * elems + other, rate)
         records[name] = dict(
             name=name, route="cuda",
             source="bsgs_tpu_torch/csrc/epoch_kernels.cu",
             replaces=TPU_KERNEL[name], launches=0, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, bound_ms_packed=1e3 * max(op_s, packed_s),
-            bound_by_packed="operations" if op_s >= packed_s else "bytes",
-            shape=shapes[name])
+            library_ms=None, bound_ms_packed=packed_ms,
+            bound_by_packed=packed_by, shape=shapes[name])
         log(f"kernel {name} [{label}, {shapes[name]}]: bit-identical to "
             f"plain; {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
             f"{bound_ms:.4f} ms by {bound_by}, "
-            f"{1e3 * max(op_s, packed_s):.4f} ms at 32 B per element); "
+            f"{packed_ms:.4f} ms at 32 B per element); "
             f"exact/doubling/edge lanes included")
         torch.cuda.synchronize()
     records["fermat"].update(
@@ -381,7 +420,8 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
 
     # The shape of the inversion tree and the chain length change no output
     # bit, only the time: one phase at chain lengths 8 and 16, with the
-    # totals inverted after one fold and unfolded (16, unfolded: the path's).
+    # totals inverted after one fold (through the Montgomery kernels of
+    # csrc/mont.cuh) and unfolded (16, unfolded: the path's).
     def phase(c, direct_max):
         pre_c, tot_c = EK.epoch_fwd(ox, cx, chunk_c=c, lanes_w=W)
         inv_c = EK.batch_inv_planar(tot_c, chunk_c=c, lanes_w=W,
@@ -412,6 +452,191 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
         log(f"tree [{label}]: key planes equal under all four shapes")
     torch.cuda.synchronize()
     return records
+
+
+def tile_points(rng, m: int, device):
+    """Random (xs, ys) planes of m lanes and a step column (cx, cy), with
+    doubling lanes planted (x == Cx at lanes 1234 % m and m - 1)."""
+    xs = random_planes(rng, 16, m, device)
+    ys = random_planes(rng, 16, m, device)
+    cx = random_planes(rng, 16, 1, device)
+    cy = random_planes(rng, 16, 1, device)
+    for lane in (1234 % m, m - 1):
+        xs[:, lane] = cx[:, 0]
+    return xs, ys, cx, cy
+
+
+def mont_work(m: int, chunk_c: int, backward: bool, points: bool,
+              doublings: int = 0) -> tuple:
+    """(int32 instructions, field elements moved) of one Montgomery pass
+    over m lanes in chains of chunk_c: the function's own work, a multiply
+    per element forward and two backward; forward reads v and writes pre
+    and the totals, backward reads v, pre and the inverted totals and
+    writes the inverses. The points entry reads xs in place of v, ys only
+    on the doubling lanes, and the step's x column, and adds a sub_mod per
+    element (and an add_mod per doubling lane)."""
+    ops = m * (2 if backward else 1) * OPS_MUL
+    elems = (3 if backward else 2) * m + -(-m // chunk_c)
+    if points:
+        ops += (m + doublings) * OPS_ADD
+        elems += doublings + 1
+    return ops, elems
+
+
+def bound(ops: int, nbytes: int, ops_per_s: float = INT32_OPS_PER_S):
+    """(ms, "operations" or "bytes"): the larger of the two floors, the
+    instructions at ops_per_s and the bytes at the memory's rate."""
+    op_s, byte_s = ops / ops_per_s, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(op_s, byte_s), ("operations" if op_s >= byte_s
+                                     else "bytes")
+
+
+def check_mont(device, m: int, label: str) -> dict:
+    """The two redesigned Montgomery kernels at one tile width, both
+    entries (the points entry the build runs, and the plane entry of the
+    inversion's recursion), at the tile chain length: bit-identical to the
+    serial plain versions and to the segmented plain versions (the
+    kernel's own split), doubling lanes planted; then a ragged width (the
+    points entry pads the last block of chains in registers). Times each
+    pass and the tile's whole inversion (forward, inversion of the
+    totals, backward). Returns the records of the points entry."""
+    import numpy as np
+    import torch
+
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
+
+    rng = np.random.default_rng(SEED + 7)
+    C, W = EK.TILE_CHUNK_C, EK.LANES_W
+    S = EK.mont_segments(C)
+    kw = dict(chunk_c=C, lanes_w=W)
+
+    def same(what, got, *wants):
+        got = got if isinstance(got, tuple) else (got,)
+        for want in wants:
+            want = want if isinstance(want, tuple) else (want,)
+            if len(got) != len(want) or not all(
+                    g.shape == w.shape and torch.equal(g, w)
+                    for g, w in zip(got, want)):
+                raise AssertionError(f"{what} [{label}]: kernel differs from "
+                                     f"a plain version")
+
+    for width in (m, 5001):
+        xs, ys, cx, _ = tile_points(rng, width, device)
+        pre, tot = EK.mont_fwd_points(xs, ys, cx, **kw)
+        same(f"mont_fwd points m={width}", (pre, tot),
+             EK.mont_fwd_points_plain(xs, ys, cx, **kw),
+             EK.mont_fwd_points_plain(xs, ys, cx, segments=S, **kw))
+        itot = EK.fermat(tot)
+        inv = EK.mont_bwd_points(xs, ys, cx, pre, itot, **kw)
+        same(f"mont_bwd points m={width}", inv,
+             EK.mont_bwd_points_plain(xs, ys, cx, pre, itot, **kw),
+             EK.mont_bwd_points_plain(xs, ys, cx, pre, itot, segments=S,
+                                      **kw),
+             EK.fermat(EK.tile_den_plain(xs, ys, cx).to(torch.int32)))
+    xs, ys, cx, _ = tile_points(rng, m, device)
+    den = EK.tile_den_plain(xs, ys, cx).to(torch.int32)
+    vpre, vtot = EK.mont_fwd(den, **kw)
+    same("mont_fwd plane", (vpre, vtot), EK.mont_fwd_plain(den, **kw),
+         EK.mont_fwd_segmented_plain(den, segments=S, **kw),
+         EK.mont_fwd_points(xs, ys, cx, **kw))
+    vitot = EK.fermat(vtot)
+    same("mont_bwd plane", EK.mont_bwd(den, vpre, vitot, **kw),
+         EK.mont_bwd_plain(den, vpre, vitot, **kw),
+         EK.mont_bwd_segmented_plain(den, vpre, vitot, segments=S, **kw))
+    torch.cuda.synchronize()
+
+    pre, tot = EK.mont_fwd_points(xs, ys, cx, **kw)
+    itot = EK.fermat(tot)
+    dbl = int((xs == cx).all(dim=0).sum())
+    records = {}
+    for name, kern, plain, backward in (
+            ("mont_fwd", lambda: EK.mont_fwd_points(xs, ys, cx, **kw),
+             lambda: EK.mont_fwd_points_plain(xs, ys, cx, **kw), False),
+            ("mont_bwd",
+             lambda: EK.mont_bwd_points(xs, ys, cx, pre, itot, **kw),
+             lambda: EK.mont_bwd_points_plain(xs, ys, cx, pre, itot, **kw),
+             True)):
+        ms = cuda_ms(kern, reps=20)
+        plain_ms = cuda_ms(plain, reps=1, queued=False)
+        plane_ms = cuda_ms(
+            (lambda: EK.mont_bwd(den, vpre, vitot, **kw)) if backward
+            else (lambda: EK.mont_fwd(den, **kw)), reps=20)
+        ops, elems = mont_work(m, C, backward, True, dbl)
+        bound_ms, bound_by = bound(ops, 64 * elems)
+        packed_ms, packed_by = bound(ops, 32 * elems)
+        plane_ops, plane_elems = mont_work(m, C, backward, False)
+        records[name] = dict(
+            name=name, route="cuda", source="bsgs_tpu_torch/csrc/mont.cuh",
+            replaces=TPU_KERNEL[name], launches=0, max_abs_err=0, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, bound_ms_packed=packed_ms,
+            bound_by_packed=packed_by,
+            shape=f"points entry, m={m}, chains of {C} in {S} segments",
+            plane_entry_ms=plane_ms,
+            plane_entry_bound_ms=bound(plane_ops, 64 * plane_elems)[0])
+        log(f"kernel {name} [{label}, points entry, m={m}, chains of {C} "
+            f"in {S} segments]: bit-identical to the serial and the "
+            f"segmented plain versions (and at m=5001), {dbl} doubling "
+            f"lanes; {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by}: {100 * bound_ms / ms:.0f}%; "
+            f"{packed_ms:.4f} ms at 32 B per element); plane entry "
+            f"{plane_ms:.4f} ms")
+
+    def fold():
+        p_, t_ = EK.mont_fwd_points(xs, ys, cx, **kw)
+        i_ = EK.batch_inv_planar(t_)
+        return EK.mont_bwd_points(xs, ys, cx, p_, i_, **kw)
+
+    fold_ms = cuda_ms(fold, reps=20)
+    records["mont_bwd"]["tile_inversion_ms"] = fold_ms
+    log(f"tile inversion [{label}, m={m}]: forward, inversion of {m // C} "
+        f"totals, backward: {fold_ms:.4f} ms")
+    return records
+
+
+def sweep_mont(device, m: int, label: str) -> list:
+    """The chain length and the segments a chain is spread over, chosen by
+    measurement: the tile's whole inversion (the points entry's forward
+    pass, the inversion of the m/C totals, the backward pass) at each
+    layout, every result bit-identical to the path's layout."""
+    import numpy as np
+    import torch
+
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
+
+    rng = np.random.default_rng(SEED + 9)
+    xs, ys, cx, _ = tile_points(rng, m, device)
+    W = EK.LANES_W
+
+    def fold(C, S):
+        kw = dict(chunk_c=C, lanes_w=W, segments=S)
+        p_, t_ = EK.mont_fwd_points(xs, ys, cx, **kw)
+        i_ = EK.batch_inv_planar(t_)
+        return EK.mont_bwd_points(xs, ys, cx, p_, i_, **kw)
+
+    want = fold(EK.TILE_CHUNK_C, EK.mont_segments(EK.TILE_CHUNK_C))
+    out = []
+    for C, S in ((4, 1), (16, 4), (16, 8), (16, 16), (32, 8), (32, 16),
+                 (64, 16)):
+        if not torch.equal(fold(C, S), want):
+            raise AssertionError(f"tile inversion differs at C={C}, S={S}")
+        kw = dict(chunk_c=C, lanes_w=W, segments=S)
+        fwd = cuda_ms(lambda: EK.mont_fwd_points(xs, ys, cx, **kw), 20)
+        p_, t_ = EK.mont_fwd_points(xs, ys, cx, **kw)
+        i_ = EK.batch_inv_planar(t_)
+        bwd = cuda_ms(lambda: EK.mont_bwd_points(xs, ys, cx, p_, i_, **kw),
+                      20)
+        inv = cuda_ms(lambda: EK.batch_inv_planar(t_), 20)
+        whole = cuda_ms(lambda: fold(C, S), 20)
+        out.append(dict(chunk_c=C, segments=S, seg_len=C // S, fwd_ms=fwd,
+                        bwd_ms=bwd, totals=t_.shape[1], totals_inv_ms=inv,
+                        tile_inversion_ms=whole))
+        log(f"layout [{label}, m={m}]: chains of {C} in {S} segments of "
+            f"{C // S}: forward {fwd:.4f} ms, inversion of {t_.shape[1]} "
+            f"totals "
+            f"{inv:.4f} ms, backward {bwd:.4f} ms, whole {whole:.4f} ms")
+    torch.cuda.synchronize()
+    return out
 
 
 def phase_keys(solver, seed: int):
@@ -469,7 +694,8 @@ def check_probe(label: str, bucket, disc, dense, reps: int = 20) -> dict:
     if m >= 16 and not 0 < hits < m:
         raise AssertionError(f"probe {label}: one-sided answers ({hits}/{m})")
     ms = cuda_ms(lambda: PK.probe_rows(bucket, disc, dense), reps)
-    plain_ms = cuda_ms(lambda: PK.probe_rows_plain(bucket, disc, dense), 2)
+    plain_ms = cuda_ms(lambda: PK.probe_rows_plain(bucket, disc, dense), 2,
+                       queued=False)
     bound_ms = 1e3 * m * (4 * window + 9) / HBM_BYTES_PER_S
     log(f"kernel probe_rows [{label}]: bit-identical to plain ({hits} of "
         f"{m} found); {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
@@ -553,7 +779,6 @@ def profile_scan(solver, pub, pk: int, epochs: int) -> None:
     time by kernel, the device's busy share of the wall time, and the host
     time spent queueing epochs (Solver._dispatch)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg = solver.cfg
@@ -578,10 +803,7 @@ def profile_scan(solver, pub, pk: int, epochs: int) -> None:
     finally:
         del solver._dispatch
 
-    rows = sorted(
-        (e for e in prof.key_averages()
-         if getattr(e, "device_type", None) == DeviceType.CUDA),
-        key=lambda e: e.self_device_time_total, reverse=True)
+    rows = device_rows(prof)
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     log(f"profile: {epochs} epochs in {wall * 1e3:.2f} ms wall (profiler "
         f"on); device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%); "
@@ -616,6 +838,256 @@ def count_syncs(solver, pub, pk: int, epochs: int) -> None:
         f"{dict(sites)}")
 
 
+def device_rows(prof):
+    """The profiler's device rows (kernels, copies, fills; not the step
+    markers of a profiler schedule), most time first."""
+    from torch.autograd import DeviceType
+
+    return sorted(
+        (e for e in prof.key_averages()
+         if getattr(e, "device_type", None) == DeviceType.CUDA
+         and not e.key.startswith("ProfilerStep")),
+        key=lambda e: e.self_device_time_total, reverse=True)
+
+
+def timed_parts(parts: dict):
+    """Wrap module functions so that each call is timed on the host clock
+    from a synchronise to a synchronise: {label: (module, name)} -> a
+    context manager yielding {label: [seconds per call]}. The parts then
+    run one after another, so their sum exceeds the untouched build's
+    wall time by whatever overlap there was."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        took = {label: [] for label in parts}
+        saved = []
+        for label, (mod, name) in parts.items():
+            fn = getattr(mod, name)
+            saved.append((mod, name, fn))
+
+            def timed(*a, _fn=fn, _label=label, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                took[_label].append(time.perf_counter() - t0)
+                return out
+
+            setattr(mod, name, timed)
+        try:
+            yield took
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    return ctx()
+
+
+def profile_build(w: int, device) -> dict:
+    """Where one table build's time goes: the build as the path runs it
+    (host clock ending in a synchronise); the same build under
+    torch.profiler (device ms by kernel, PyTorch's own kernels included,
+    and the device's busy share); and the same build once more with its
+    parts timed one by one: the fill's host seed row (ec.host_row), the
+    whole first-tile fill (fill_multiples_planar), the tile advances
+    (add_const_planar, fill passes included) and the pack (_device_pack)
+    or the chunk scatters (_chunk_scatter)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bsgs_tpu_torch.models import solver as S, table as T
+    from bsgs_tpu_torch.ops import ec, epoch_kernel as EK
+
+    cfg = S.SolverConfig(w=w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    baby = S.build_table(cfg, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del baby
+    torch.cuda.empty_cache()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        baby = S.build_table(cfg, device=device)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    del baby
+    torch.cuda.empty_cache()
+    rows = device_rows(prof)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
+    ours = ("mont_", "add_const", "modinv", "epoch_", "probe_rows")
+    own_ms = sum(e.self_device_time_total for e in rows
+                 if any(k in e.key for k in ours)) / 1e3
+
+    parts = {"seed row": (ec, "host_row"),
+             "fill": (EK, "fill_multiples_planar"),
+             "tile advance": (EK, "add_const_planar"),
+             "pack": (T, "_device_pack"),
+             "chunk scatter": (T, "_chunk_scatter")}
+    with timed_parts(parts) as took:
+        baby = S.build_table(cfg, device=device)
+        torch.cuda.synchronize()
+    del baby
+    torch.cuda.empty_cache()
+    label = f"w=2^{w.bit_length() - 1}"
+    out = dict(w=w, wall_s=wall, wall_s_profiled=wall_prof,
+               device_busy_ms=busy, device_launches=launches,
+               own_kernels_ms=own_ms,
+               by_kernel=[dict(kernel=e.key[:100], ms=e.self_device_time_total
+                               / 1e3, count=e.count) for e in rows[:14]],
+               parts={k: dict(calls=len(v), ms_total=1e3 * sum(v))
+                      for k, v in took.items()})
+    log(f"build profile [{label}]: {wall:.3f} s as the path runs it "
+        f"({wall_prof:.3f} s profiled); device busy {busy:.1f} ms "
+        f"({100 * busy / 1e3 / wall_prof:.1f}% of the profiled wall), "
+        f"{launches} device launches, {own_ms:.1f} ms in the port's own "
+        f"kernels, {busy - own_ms:.1f} ms in PyTorch's")
+    for e in rows[:14]:
+        log(f"build profile [{label}]: {e.self_device_time_total / 1e3:9.3f}"
+            f" ms x{e.count:<6d} {e.key[:90]}")
+    for k, v in out["parts"].items():
+        log(f"build profile [{label}]: part {k}: {v['calls']} calls, "
+            f"{v['ms_total']:.2f} ms (each from a synchronise to a "
+            f"synchronise)")
+    return out
+
+
+def profile_tile_advance(tile: int, device, calls: int = 8) -> dict:
+    """One tile advance (add_const_planar on a filled tile, its output fed
+    back as the build does): the host's time to queue it, its wall time
+    with the device's, and the device launches it makes under
+    torch.profiler, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
+    from bsgs_tpu_torch.utils import ecpy
+
+    xs, ys = EK.fill_multiples_planar(ecpy.mul(1), ecpy.mul(1), tile,
+                                      device=device)
+    step = ecpy.mul(tile)
+    cx = PL.const_col(step[0], device).to(torch.int32)
+    cy = PL.const_col(step[1], device).to(torch.int32)
+    xs, ys, _, _ = EK.add_const_planar(xs, ys, cx, cy)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        xs, ys, _, _ = EK.add_const_planar(xs, ys, cx, cy)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # two warm-up steps: the tracer misses launches made just after it
+    # starts
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=calls,
+                                   repeat=1)) as prof:
+        for i in range(2 + calls):
+            xs, ys, _, _ = EK.add_const_planar(xs, ys, cx, cy)
+            if i == 1 + calls:
+                torch.cuda.synchronize()
+            prof.step()
+    rows = device_rows(prof)
+    per = sum(e.count for e in rows) / calls
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / calls
+    out = dict(tile=tile, host_ms=1e3 * host / calls,
+               wall_ms=1e3 * wall / calls, device_ms=dev_ms,
+               device_launches=per,
+               by_kernel=[dict(kernel=e.key[:100], count=e.count / calls,
+                               ms=e.self_device_time_total / 1e3 / calls)
+                          for e in rows])
+    log(f"tile advance [{tile} lanes]: {out['host_ms']:.3f} ms of host "
+        f"queueing, {out['wall_ms']:.3f} ms wall, {dev_ms:.3f} ms of device "
+        f"time in {per:g} device launches per advance")
+    for e in rows[:12]:
+        log(f"tile advance [{tile} lanes]: x{e.count / calls:<5g} "
+            f"{e.self_device_time_total / 1e3 / calls:8.4f} ms "
+            f"{e.key[:90]}")
+    return out
+
+
+def time_residue_scan(device, w: int = 1 << 30) -> float:
+    """Seconds of one lookup that survives the hint on a rescan table of
+    this w: two row pulls and one residue scan of w/256 points (4 tiles of
+    2^20 lanes at w=2^30). The table is a 16-row stand-in holding one
+    planted slot; the scan regenerates the real baby stream."""
+    import torch
+
+    from bsgs_tpu_torch.models import table as T
+    from bsgs_tpu_torch.utils import ecpy
+
+    htsz, window = 4, T.DEVICE_WINDOW
+    dense = torch.full((1 << htsz, window), T.DENSE_FILL, dtype=torch.int32,
+                       device=device)
+    pos_lo = torch.zeros((1 << htsz, window), dtype=torch.int16,
+                         device=device)
+    pre = ecpy.mul(w + 12345)[0] & ((1 << 64) - 1)
+    sh, mk = T._disc_lo_shift(htsz)
+    dense[pre >> (64 - htsz), 0] = T._i32(pre >> (32 - htsz))
+    pos_lo[pre >> (64 - htsz), 0] = int(T._u16_bits(
+        torch.tensor((((pre >> sh) & mk) << 8) | 7)))
+    lookup = T.make_strided_lookup(w, dense, pos_lo, htsz, tile=1 << 20)
+    lookup(pre)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = lookup(pre)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    if got != [] or lookup.stats["residue_scans"] != 2:
+        raise AssertionError(f"residue scan stand-in: {got}, {lookup.stats}")
+    log(f"residue scan: one lookup that survives the hint at w=2^"
+        f"{w.bit_length() - 1} ({w // 256} points regenerated): "
+        f"{took:.4f} s")
+    return took
+
+
+def build_profiles(device) -> dict:
+    """Step one of a table build's measurement: both builds profiled, one
+    tile advance at each path's tile, one residue scan. Two small builds
+    first load every kernel that the builds use, so that no profiled build
+    pays for that."""
+    from bsgs_tpu_torch.models import table as T
+
+    for build in (T.build_baby_table_device, T.build_baby_table_streamed):
+        build(1 << 22, device=device)
+    return dict(
+        builds=[profile_build(1 << 26, device),
+                profile_build(1 << 30, device)],
+        tile_advance=[profile_tile_advance(1 << 18, device),
+                      profile_tile_advance(1 << 20, device)],
+        residue_scan_s=time_residue_scan(device))
+
+
+def build_times(device) -> dict:
+    """The table builds and one residue scan as the paths run them, host
+    clock ending in a synchronise, after the same warm-up builds as
+    build_profiles: what `chip_smoke.py --builds` prints, to compare two
+    trees on one card."""
+    import torch
+
+    from bsgs_tpu_torch.models import solver as S, table as T
+
+    for build in (T.build_baby_table_device, T.build_baby_table_streamed):
+        build(1 << 22, device=device)
+    out = {}
+    for w in (1 << 26, 1 << 30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        baby = S.build_table(S.SolverConfig(w=w), device=device)
+        torch.cuda.synchronize()
+        out[f"build_s_w2^{w.bit_length() - 1}"] = time.perf_counter() - t0
+        del baby
+        torch.cuda.empty_cache()
+    out["residue_scan_s"] = time_residue_scan(device)
+    log(f"build times: {out}")
+    return out
+
+
 def read_launches(path: str, totals: dict) -> None:
     """Record the launch counts of the path just driven (the counters were
     set to 0 just before it) and fail if a kernel was not launched."""
@@ -627,6 +1099,12 @@ def read_launches(path: str, totals: dict) -> None:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched on the {path} "
                              f"path: {launches}")
+    # every tile advance and fill pass folds once (one forward and one
+    # backward pass around one inversion); the epochs launch neither pass
+    passes = {launches[k] for k in ("mont_fwd", "mont_bwd", "add_const")}
+    if len(passes) != 1:
+        raise AssertionError(f"the {path} path's add-const passes do not "
+                             f"each fold once: {launches}")
 
 
 def timed_scans(solver, pub, pk: int, epochs: int, repeats: int,
@@ -714,14 +1192,26 @@ def main() -> int:
     t_start = time.time()
 
     # 1. build
-    log(f"phase 1: kernels built in {build_kernels():.1f} s")
+    took, libs = build_kernels()
+    log(f"phase 1: kernels built in {took:.1f} s")
     torch.cuda.synchronize()
+    if sys.argv[1:] == ["--builds"]:
+        print(json.dumps(build_times(device)))
+        print(card)
+        return 0
+    resources = mont_resources(libs)
 
     # 2. each epoch and table kernel against its plain version
     records = check_kernels(device, "w=2^26 shapes", htsz=20,
                             m_tab=1 << 18, time_trees=True)
     records["fermat"]["widths"] = check_inversion(
         device, (2048, 16384, 131072))
+    records.update(check_mont(device, 1 << 18, "w=2^26 shapes"))
+    for name in ("mont_fwd", "mont_bwd"):
+        records[name]["resources"] = {
+            k: v for k, v in resources.items() if k.startswith(name)}
+    records["mont_fwd"]["layouts"] = sweep_mont(device, 1 << 18,
+                                                "w=2^26 tile")
     torch.cuda.synchronize()
 
     # 3-4. the main path, counted: table build, solver set-up, planted solve
@@ -795,6 +1285,9 @@ def main() -> int:
     # key plane, and 2^20-lane tiles in the build and the residue scans
     records_big = check_kernels(device, "w=2^30 shapes", htsz=cfg.htsz,
                                 m_tab=1 << 20, time_trees=False)
+    records_big.update(check_mont(device, 1 << 20, "w=2^30 shapes"))
+    records["mont_fwd"]["layouts_w30"] = sweep_mont(device, 1 << 20,
+                                                    "w=2^30 tile")
     torch.cuda.synchronize()
     _cuda.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -900,7 +1393,25 @@ def main() -> int:
     baby.pos_lo[fp_row, fp_col] = 0
     torch.cuda.synchronize()
 
-    # 8. the record
+    # 8. where a table build's time goes: both builds profiled, one tile
+    # advance at each path's tile (four launches and nothing else), one
+    # residue scan
+    del solver, baby
+    torch.cuda.empty_cache()
+    builds = build_profiles(device)
+    for adv in builds["tile_advance"]:
+        names = [r["kernel"] for r in adv["by_kernel"]]
+        if adv["device_launches"] != 4 or len(names) != 4 or not all(
+                sum(k in n for n in names) == 1 for k in (
+                    "mont_fwd_kernel", "modinv_kernel", "mont_bwd_kernel",
+                    "add_const_kernel")):
+            raise AssertionError(
+                f"a tile advance of {adv['tile']} lanes made "
+                f"{adv['device_launches']} device launches: "
+                f"{adv['by_kernel']}")
+    log(f"builds: {json.dumps(builds)}")
+
+    # 9. the record
     main_stream, big_stream = probe[0], probe_big[0]
     records["probe_rows"] = dict(
         name="probe_rows", route="cuda",
