@@ -13,7 +13,8 @@ waits for the device.
 Tables of w >= 2^28 are built streamed (table.build_baby_table_streamed).
 On a rescan table a position lookup regenerates part of the baby stream,
 so ``solve`` pools the hits of several drained epochs and verifies them in
-one batch (``VERIFY_DEFER_EPOCHS``).
+one batch (``SolverConfig.verify_defer_epochs``); its ``on_epoch`` and
+``progress`` callbacks trail that verification.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -35,8 +36,12 @@ from . import checker, giant, table as tbl
 MEMORY_RESERVE = 3 << 30
 
 # Drained epochs over which solve pools the hits of a rescan table before
-# one batched verification.
+# one batched verification (the default of SolverConfig.verify_defer_epochs).
 VERIFY_DEFER_EPOCHS = 64
+
+# Chain lengths and lane spacings chain_layout chooses from, longest first.
+LAYOUT_CHUNKS = (16, 8, 4, 2, 1)
+LAYOUT_LANES = (256, 128, 64, 32, 16, 8, 4, 2, 1)
 
 
 @dataclasses.dataclass
@@ -50,8 +55,14 @@ class SolverConfig:
     jobs_per_epoch: centers per epoch.
     pipeline: epochs in flight before the host reads one back.
     epoch_phases: job groups computed and probed one after another inside
-          an epoch (bounds the key plane held at once).
-    chunk_c, lanes_w: chain layout of the epoch kernels (ops/epoch_kernel).
+          an epoch (bounds the key plane held at once); 1 when it does not
+          divide jobs_per_epoch.
+    chunk_c, lanes_w: chain layout of the epoch kernels (ops/epoch_kernel;
+          chain_layout picks one for any n_offsets).
+    positions: how a streamed build maps a hit to baby positions: "mirror",
+          "rescan", or "auto" (rescan from tbl.STREAMED_W).
+    verify_defer_epochs: drained epochs over which a rescan table's hits
+          are pooled before one batched verification (0: every drain).
     """
 
     w: int
@@ -65,6 +76,8 @@ class SolverConfig:
     lanes_w: int = EK.LANES_W
     pipeline: int = 3
     epoch_phases: int = 4
+    positions: str = "auto"
+    verify_defer_epochs: int = VERIFY_DEFER_EPOCHS
 
     def __post_init__(self):
         if self.htsz is None:
@@ -82,6 +95,32 @@ class SolverConfig:
     @property
     def keys_per_epoch(self) -> int:
         return self.jobs_span * self.jobs_per_epoch * self.stride
+
+    @property
+    def phases(self) -> int:
+        p = max(1, self.epoch_phases)
+        return p if self.jobs_per_epoch % p == 0 else 1
+
+
+def chain_layout(n_offsets: int, jobs_per_phase: int) -> tuple[int, int]:
+    """(chunk_c, lanes_w) of the epoch kernels for N offsets: the longest
+    chains (at most EK.CHUNK_C) whose length divides N, spaced as far apart
+    as N allows (at most EK.LANES_W), so EK.CHUNK_C x EK.LANES_W whenever
+    4,096 divides N. A phase whose chain totals exceed EK.DIRECT_MAX folds
+    them through the Montgomery kernels, which need lanes_w a multiple of
+    32: N without such a layout is refused (ValueError)."""
+    if n_offsets < 1:
+        raise ValueError(f"n_offsets must be positive (got {n_offsets})")
+    c = next(c for c in LAYOUT_CHUNKS if n_offsets % c == 0)
+    w = next(w for w in LAYOUT_LANES if (n_offsets // c) % w == 0)
+    if jobs_per_phase * n_offsets // c > EK.DIRECT_MAX and w % 32:
+        raise ValueError(
+            f"n_offsets {n_offsets}: {jobs_per_phase * n_offsets // c} chain "
+            f"totals a phase need a Montgomery fold, which takes lanes_w a "
+            f"multiple of 32, and chains of {c} x {w} lanes are the widest "
+            f"that divide it; use a multiple of {c * 32} (the unfused epoch, "
+            f"which would take any N, is not ported)")
+    return c, w
 
 
 class HitOverflow(RuntimeError):
@@ -119,15 +158,16 @@ def check_table_fits(table_bytes: int, mem_bytes: Optional[int] = None,
 
 
 def table_bytes_per_slot(cfg: SolverConfig) -> int:
-    """Device bytes per dense slot: 4 for the matrix, plus the 2-byte hint
-    of a streamed (rescan) table."""
-    return 4 if cfg.w < tbl.STREAMED_W else 6
+    """Device bytes per dense slot: 4 for the matrix, plus a streamed
+    table's 2-byte hint (rescan) or 4-byte position plane (mirror)."""
+    if cfg.w < tbl.STREAMED_W:
+        return 4
+    return 8 if cfg.positions == "mirror" else 6
 
 
 def build_table(cfg: SolverConfig, device=None) -> tbl.BabyTable:
     """The on-device table build for a config: one sort pack below
-    tbl.STREAMED_W, the streamed build with rescan positions from there
-    on."""
+    tbl.STREAMED_W, the streamed build (cfg.positions) from there on."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         check_table_fits(
@@ -135,7 +175,8 @@ def build_table(cfg: SolverConfig, device=None) -> tbl.BabyTable:
             device=dev)
     if cfg.w >= tbl.STREAMED_W:
         return tbl.build_baby_table_streamed(
-            cfg.w, cfg.htsz, window=cfg.window, device=dev)
+            cfg.w, cfg.htsz, window=cfg.window, positions=cfg.positions,
+            device=dev)
     return tbl.build_baby_table_device(cfg.w, cfg.htsz, window=cfg.window,
                                        tile=cfg.table_tile, device=dev)
 
@@ -154,15 +195,17 @@ class Solver:
             raise ValueError(
                 f"n_offsets {n} is not a multiple of chunk_c*lanes_w "
                 f"({cfg.chunk_c}*{cfg.lanes_w})")
-        # Giant offsets O_j = j*S*G, j = 1..N, as planar (16, N) planes.
+        # Giant offsets O_j = j*S*G, j = 1..N, as planar (16, N) planes
+        # (the fill doubles, so it runs to the next power of two).
         s_g = ecpy.mul(cfg.stride)
-        self.ox_pl, self.oy_pl = EK.fill_multiples_planar(
-            s_g, s_g, n, device=self.device)
+        ox, oy = EK.fill_multiples_planar(
+            s_g, s_g, 1 << (n - 1).bit_length(), device=self.device)
+        self.ox_pl = ox[:, :n].contiguous()
+        self.oy_pl = oy[:, :n].contiguous()
         # Epoch center stepping: centers advance by -(2N+1)*S*G.
         self.center_step = ecpy.neg(ecpy.mul(cfg.jobs_span * cfg.stride))
         self._verify_offsets()
-        phases = max(1, cfg.epoch_phases)
-        self._phases = phases if cfg.jobs_per_epoch % phases == 0 else 1
+        self._phases = cfg.phases
 
     def _verify_offsets(self, checks: int = 4):
         """Spot-verify random offsets against exact host EC: column j must
@@ -184,22 +227,13 @@ class Solver:
     # -- center generation -------------------------------------------------
     def epoch_centers(self, q0, first_job: int, n_jobs: int):
         """Host arrays (x (T,16), y (T,16), inf (T,)) of job-center points
-        M_g = Q0 - c_g*S*G for g = first_job .. first_job + n_jobs - 1.
-
-        If the FIRST center is the point at infinity the row starts from
-        the next center and lane 0 is marked infinite."""
+        M_g = Q0 - c_g*S*G for g = first_job .. first_job + n_jobs - 1, one
+        exact host addition a center (ec.host_row), for any T; a center at
+        infinity has its lane marked, as bsgs_tpu's fill marks it."""
         cfg = self.cfg
         c0 = (first_job * cfg.jobs_span + cfg.n_offsets) * cfg.stride
-        m0 = ecpy.sub(q0, ecpy.mul(c0))
-        if m0 is None:
-            cx, cy, cinf = ec.fill_multiples(
-                self.center_step, self.center_step, max(1, n_jobs - 1))
-            pad = np.zeros((1, F.NLIMBS), np.uint32)
-            cx = np.concatenate([pad, cx])[:n_jobs]
-            cy = np.concatenate([pad, cy])[:n_jobs]
-            cinf = np.concatenate([[True], cinf])[:n_jobs]
-            return cx, cy, cinf
-        return ec.fill_multiples(m0, self.center_step, n_jobs)
+        return ec.host_row(ecpy.sub(q0, ecpy.mul(c0)), self.center_step,
+                           n_jobs)
 
     def _centers_on_device(self, q0, first_job: int):
         """Epoch centers as device tensors, copied from pinned memory
@@ -278,16 +312,27 @@ class Solver:
 
     # -- main loop ----------------------------------------------------------
     def solve(self, pub: tuple, pk: int, pke: int,
-              max_epochs: Optional[int] = None) -> SolveResult:
+              progress: Optional[Callable] = None,
+              max_epochs: Optional[int] = None, start_epoch: int = 0,
+              on_epoch: Optional[Callable] = None) -> SolveResult:
         """Find k in [pk, pke] with k*G == pub (None key if exhausted).
 
-        max_epochs caps the epochs dispatched (a timed scan of part of a
-        range).
+        The scan runs epochs start_epoch, start_epoch + 1, ... (a resumed
+        scan starts past 0); max_epochs caps the epochs dispatched (a timed
+        scan of part of a range). giant_steps counts this call's steps.
 
         On a rescan table (baby.lookup_fn) hits are pooled for up to
-        VERIFY_DEFER_EPOCHS drained epochs and verified in one batch;
+        cfg.verify_defer_epochs drained epochs and verified in one batch;
         a scan that ends with hits still pooled verifies them before it
-        returns. Other tables verify at every drain."""
+        returns. Other tables verify at every drain.
+
+        on_epoch(epoch, steps) and progress(epoch + 1, total_epochs, steps,
+        seconds) fire for each drained epoch, in order, once no hit of it
+        or of an earlier epoch is left unverified: with pipelining and
+        deferral they trail the dispatch frontier, so a checkpoint written
+        from on_epoch never skips an unverified epoch (the reference's
+        min-counter rule, 1_9_7File.pb:3897-3931). steps is this call's
+        giant steps up to and including that epoch."""
         cfg = self.cfg
         if pub is None or not ecpy.is_on_curve(pub):
             raise ValueError("pubkey is not a point on secp256k1")
@@ -296,21 +341,24 @@ class Solver:
             return SolveResult(pk, 0, 0.0, 0, 0)
         q0 = ecpy.sub(pub, ecpy.mul(pk))
         total_epochs = self._total_epochs(pk, pke)
+        end = total_epochs
         if max_epochs is not None:
-            total_epochs = min(total_epochs, max_epochs)
+            end = min(end, start_epoch + max_epochs)
 
         steps = 0
         hits_checked = 0
         t0 = time.time()
-        epoch = 0
+        epoch = start_epoch
         drained = 0
         depth = max(1, cfg.pipeline)
         inflight = collections.deque()
-        defer = VERIFY_DEFER_EPOCHS if self.baby.lookup_fn is not None else 0
+        defer = (max(0, cfg.verify_defer_epochs)
+                 if self.baby.lookup_fn is not None else 0)
         pending = []
         first_pending = 0
-        while epoch < total_epochs or inflight:
-            while epoch < total_epochs and len(inflight) < depth:
+        unreported = []  # (epoch, steps) drained, not yet called back
+        while epoch < end or inflight:
+            while epoch < end and len(inflight) < depth:
                 inflight.append(self._dispatch(q0, epoch))
                 epoch += 1
             rec = inflight.popleft()
@@ -325,11 +373,12 @@ class Solver:
                     rec = self._redispatch(q0, e, cap)
             steps += gs
             drained += 1
+            unreported.append((e, steps))
             if batch:
                 if not pending:
                     first_pending = drained
                 pending.extend(batch)
-            scan_done = not (epoch < total_epochs or inflight)
+            scan_done = not (epoch < end or inflight)
             if pending and (scan_done or drained - first_pending >= defer):
                 key, hc = self._verify(pending, pk, pke)
                 hits_checked += hc
@@ -338,5 +387,12 @@ class Solver:
                     return SolveResult(
                         key, steps, time.time() - t0, drained, hits_checked
                     )
+            if not pending:
+                for e0, st0 in unreported:
+                    if on_epoch is not None:
+                        on_epoch(e0, st0)
+                    if progress is not None:
+                        progress(e0 + 1, total_epochs, st0, time.time() - t0)
+                unreported.clear()
         return SolveResult(None, steps, time.time() - t0, drained,
                            hits_checked)

@@ -9,6 +9,11 @@ kernel tile by tile; only their 64-bit X prefixes are kept.
   (bucket << 32 | disc) groups buckets and orders entries inside them, and
   a CSR table plus the dense (2^htsz, window) matrix fall out of a cumsum
   and a scatter. Holds all w prefixes and the sort at once.
+- ``build_baby_table``: the host pack. The prefixes are generated on the
+  caller's device (``compute_prefixes``), sorted and packed on the host by
+  the native library (``utils/native.py``), and the dense matrix re-derived
+  from the CSR arrays on the device (``dense_from_csr``); the table keeps
+  the full 64-bit ``sorted_pre`` for exact lookups.
 - ``build_baby_table_streamed``: the big-w build. The dense matrix is
   filled chunk by chunk in place, so the device holds the table plus one
   chunk's transients. No CSR arrays: positions come from a slot-aligned
@@ -29,7 +34,7 @@ import torch
 
 from .. import resolve_device
 from ..ops import epoch_kernel as EK, planar as PL, probe_kernel
-from ..utils import ecpy
+from ..utils import ecpy, native
 
 # Empty dense slots hold 0xFFFFFFFF. A probe whose own disc equals it
 # false-positives (P = 2^-32 per probe); the host checker verifies every hit.
@@ -196,6 +201,82 @@ def _prefix_tiles_planar(w: int, tile: int, device, first: int = 1,
         done += take
         if done < w:
             xs, ys, hi, lo = EK.add_const_planar(xs, ys, cxc, cyc)
+
+
+def compute_prefixes(w: int, tile: int = 1 << 18, device=None) -> np.ndarray:
+    """64-bit X prefixes of 1G..wG as a host uint64 array, generated on the
+    caller's device (_prefix_tiles_planar)."""
+    dev = resolve_device(device)
+    out = np.empty(w, dtype=np.uint64)
+    done = 0
+    for hi, lo in _prefix_tiles_planar(w, tile, dev):
+        take = hi.shape[0]
+        pre = (PL.u32_value(hi) << 32) | PL.u32_value(lo)
+        out[done:done + take] = pre.cpu().numpy().view(np.uint64)
+        done += take
+    return out
+
+
+def _u32_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """Host uint32 array -> int32 tensor with the same bits on device."""
+    a = np.ascontiguousarray(a, dtype=np.uint32)
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Host pack: native sort + CSR pack, dense matrix re-derived on the device
+
+
+def dense_from_csr(offsets, disc, window: int):
+    """(2^htsz+1,) CSR offsets + (w,) sorted discs (int32 bits) -> the
+    (2^htsz, window) dense bucket matrix, DENSE_FILL in empty slots, on
+    their device. Refuses a bucket fuller than the window."""
+    off = PL.u32_value(offsets)
+    counts = torch.diff(off)
+    nb, w = counts.numel(), disc.shape[0]
+    maxb = int(counts.max()) if nb else 0
+    if maxb > window:
+        raise ValueError(f"bucket of {maxb} entries > window {window}")
+    bucket = torch.repeat_interleave(
+        torch.arange(nb, device=disc.device), counts)
+    within = torch.arange(w, device=disc.device) - off[:-1][bucket]
+    dense = torch.full((nb, window), DENSE_FILL, dtype=torch.int32,
+                       device=disc.device)
+    dense[bucket, within] = disc
+    return dense
+
+
+def fit_window(maxb: int, window: int) -> int:
+    """Actual probe window: the requested minimum, grown (in steps of 4
+    slots) to fit the largest bucket. The hot path asks for DEVICE_WINDOW
+    and picks htsz so that growth never happens (pick_htsz)."""
+    return max(window, -(-maxb // 4) * 4)
+
+
+def pack_table(prefixes: np.ndarray, htsz: int, window: int = 16,
+               device=None) -> BabyTable:
+    """Host pack of 64-bit prefixes: the native radix sort and CSR pack,
+    then the dense matrix on the device. ``window`` is a minimum; the row
+    grows to the largest bucket (fit_window)."""
+    dev = resolve_device(device)
+    w = prefixes.shape[0]
+    sorted_pre, sorted_pos = native.sort_prefixes(prefixes)
+    offsets, disc, maxb = native.csr_pack(sorted_pre, htsz)
+    window = fit_window(maxb, window)
+    offsets_t = _u32_tensor(offsets, dev)
+    disc_t = _u32_tensor(disc, dev)
+    return BabyTable(
+        w=w, htsz=htsz, window=window, offsets=offsets_t,
+        disc_sorted=disc_t, pos_sorted=_u32_tensor(sorted_pos, dev),
+        dense=dense_from_csr(offsets_t, disc_t, window),
+        sorted_pre=sorted_pre)
+
+
+def build_baby_table(w: int, htsz: int, window: int = 16,
+                     tile: int = 1 << 18, device=None) -> BabyTable:
+    """The host-packed table of 1G..wG (prefixes from the device)."""
+    return pack_table(compute_prefixes(w, tile, device), htsz, window,
+                      device)
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +463,40 @@ def make_strided_lookup(w: int, dense, pos_lo, htsz: int,
 
     lookup.batch = lookup_many
     lookup.stats = stats
+    return lookup
+
+
+def make_rescan_lookup(w: int, tile: int = 1 << 20, device=None):
+    """Position lookup for a streamed table saved without its hint plane:
+    regenerate the whole baby stream on the device tile by tile and return
+    every index whose 64-bit prefix matches. ``lookup.batch(pres)`` matches
+    all the prefixes in one pass (the pass is the cost: w points), with
+    one host wait per tile."""
+    dev = resolve_device(device)
+
+    def lookup_many(pres) -> dict:
+        pres = sorted({int(p) & ((1 << 64) - 1) for p in pres})
+        out = {p: [] for p in pres}
+        if not pres:
+            return out
+        th = torch.tensor([_i32(p >> 32) for p in pres], dtype=torch.int32,
+                          device=dev)
+        tl = torch.tensor([_i32(p) for p in pres], dtype=torch.int32,
+                          device=dev)
+        done = 0
+        for hi, lo in _prefix_tiles_planar(w, tile, dev):
+            i, k = torch.nonzero((hi[:, None] == th) & (lo[:, None] == tl),
+                                 as_tuple=True)
+            for ii, kk in zip(i.tolist(), k.tolist()):
+                out[pres[kk]].append(done + ii + 1)
+            done += hi.shape[0]
+        return out
+
+    def lookup(pre64: int) -> list:
+        pre64 = int(pre64) & ((1 << 64) - 1)
+        return lookup_many([pre64])[pre64]
+
+    lookup.batch = lookup_many
     return lookup
 
 

@@ -32,7 +32,14 @@ nonzero:
 6. time 8-epoch scans of a pubkey with no key in range (giant-steps/s),
    requiring the launches per epoch that the inversion tree should make,
    and profile a short one (device time by kernel, busy share, the host's
-   waits for the device);
+   waits for the device, the same with the solve's callbacks set); then
+   drive the command line (bsgs_tpu_torch.cli.main, in a scratch
+   directory) at w=2^26: a planted pubkey to win.txt, --infile with a
+   garbage line, --resume from a checkpoint it wrote (and refused on
+   another --w or pubkey), --gen-only (artifact saved, reloaded, checked),
+   the progress line's rate, a narrow chain layout (--n-offsets 1000);
+   check which chain layouts the epoch kernels take, and time T=128 jobs
+   an epoch against T=16;
 7. free that table and drive the streamed path: hold the six kernels
    against their plain versions again at this path's shapes (24 bucket
    bits, 2^20-lane tiles), build the w=2^30 table (htsz=24, rescan
@@ -42,11 +49,16 @@ nonzero:
    kernel against its plain version on the 8 GiB table, and time 32-epoch
    scans (giant-steps/s, hits checked, residue scans, host waits), without
    and with a planted slot that survives the hint to a residue scan;
+   then the command line at w=2^30 (a planted key through deferred
+   verification, no checkpoint past a pooled epoch), --tune on the card
+   with the tuner's estimates held against the bytes phases 3, 6 and 7
+   measured, and the suggested geometry run with a planted key;
 8. profile both table builds (device time by kernel, the builds' parts
    timed one by one), one tile advance at each path's tile (exactly four
    device launches) and one residue scan;
-9. print the kernels' JSON line (every kernel launched on both paths),
-   the card's name and power limit, and the result line.
+9. print the kernels' JSON line (every kernel launched on each path: the
+   two solves and the command line's two), the card's name and power
+   limit, and the result line.
 
 Each path's launches must show one forward and one backward Montgomery
 pass per add-const pass: a tile advance or fill pass folds once.
@@ -58,12 +70,14 @@ beside it.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import random
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -94,6 +108,9 @@ INV_OPS_PER_S = 2 * INT32_OPS_PER_S
 P_INT = 2**256 - 2**32 - 977
 # cycles of the spin kernel that cuda_ms queues launches behind
 QUEUE_CYCLES = 20_000_000
+# How far the tuner's table and build-peak estimates may stray from the
+# bytes the run measures (they are constants measured on the H100).
+TUNER_MARGIN = 0.10
 # Kernel launches of one epoch of the main path (T=16 in 4 phases): per
 # phase one forward pass, one inversion of its chain totals (no Montgomery
 # fold), one backward pass and two probes, plus one probe of the epoch's
@@ -815,11 +832,13 @@ def profile_scan(solver, pub, pk: int, epochs: int) -> None:
             f"{e.key[:80]}")
 
 
-def count_syncs(solver, pub, pk: int, epochs: int) -> None:
+def count_syncs(solver, pub, pk: int, epochs: int, label: str = "",
+                **solve_kw) -> int:
     """The host's waits for the device during a scan, by source line, from
     PyTorch's sync debug mode: the solve loop means to wait once per epoch,
     in Solver._collect's int(cnt), plus hit readback when an epoch hits and,
-    on a rescan table, the row pulls and matches of verification."""
+    on a rescan table, the row pulls and matches of verification. Returns
+    the number of waits; solve_kw goes to solve (the callbacks)."""
     import torch
 
     cfg = solver.cfg
@@ -828,14 +847,15 @@ def count_syncs(solver, pub, pk: int, epochs: int) -> None:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             solver.solve(pub, pk, pk + epochs * cfg.keys_per_epoch - 1,
-                         max_epochs=epochs)
+                         max_epochs=epochs, **solve_kw)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     sites = collections.Counter(
         f"{Path(w.filename).parent.name}/{Path(w.filename).name}:{w.lineno}"
         for w in caught if "synchronizing CUDA operation" in str(w.message))
-    log(f"syncs: {sum(sites.values())} host waits in {epochs} epochs "
+    log(f"syncs{label}: {sum(sites.values())} host waits in {epochs} epochs "
         f"{dict(sites)}")
+    return sum(sites.values())
 
 
 def device_rows(prof):
@@ -983,16 +1003,23 @@ def profile_tile_advance(tile: int, device, calls: int = 8) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     # two warm-up steps: the tracer misses launches made just after it
-    # starts
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=2, active=calls,
-                                   repeat=1)) as prof:
-        for i in range(2 + calls):
-            xs, ys, _, _ = EK.add_const_planar(xs, ys, cx, cy)
-            if i == 1 + calls:
-                torch.cuda.synchronize()
-            prof.step()
-    rows = device_rows(prof)
+    # starts; a trace that still comes back without a device event is
+    # taken again (at most three times)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=2, active=calls,
+                                       repeat=1)) as prof:
+            for i in range(2 + calls):
+                xs, ys, _, _ = EK.add_const_planar(xs, ys, cx, cy)
+                if i == 1 + calls:
+                    torch.cuda.synchronize()
+                prof.step()
+        rows = device_rows(prof)
+        if rows:
+            break
+        log(f"tile advance [{tile} lanes]: the trace held no device event "
+            f"(attempt {attempt + 1}); profiling again")
     per = sum(e.count for e in rows) / calls
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / calls
     out = dict(tile=tile, host_ms=1e3 * host / calls,
@@ -1163,6 +1190,425 @@ def plant_surviving_slot(baby, cfg, q0, m: int):
     return pre, (bucket, col)
 
 
+# ---------------------------------------------------------------------------
+# The command line (bsgs_tpu_torch.cli), driven in-process
+
+
+def run_cli(argv, label: str):
+    """cli.main(argv) on the card, its output captured: (exit code, stdout,
+    stderr, seconds, ending in a synchronise)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from bsgs_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    log(f"cli [{label}]: exit {rc} in {took:.2f} s; "
+        f"{out.getvalue().strip().splitlines()[-1:] or ''}"
+        f"{' stderr: ' + err.getvalue().strip() if err.getvalue() else ''}")
+    return rc, out.getvalue(), err.getvalue(), took
+
+
+@contextlib.contextmanager
+def watch_cli():
+    """Record, in order, what the command line's solves do: each drained
+    epoch and its hit records, each batched verification, each checkpoint
+    written and each solve's result (SolveResult)."""
+    import dataclasses
+
+    from bsgs_tpu_torch.models import solver as S
+    from bsgs_tpu_torch.utils import checkpoint as ckpt
+
+    ev = []
+    orig = (S.Solver._collect, S.Solver._verify, S.Solver.solve,
+            ckpt.Checkpoint.save)
+
+    def collect(self, pub, pk, rec):
+        batch, gs = orig[0](self, pub, pk, rec)
+        ev.append(("drain", rec[0], len(batch)))
+        return batch, gs
+
+    def verify(self, pending, pk, pke):
+        ev.append(("verify", len(pending)))
+        return orig[1](self, pending, pk, pke)
+
+    def solve(self, *a, **kw):
+        res = orig[2](self, *a, **kw)
+        ev.append(("result", res))
+        return res
+
+    def save(self, path):
+        ev.append(("checkpoint", dataclasses.asdict(self)))
+        return orig[3](self, path)
+
+    S.Solver._collect, S.Solver._verify, S.Solver.solve = collect, verify, \
+        solve
+    ckpt.Checkpoint.save = save
+    try:
+        yield ev
+    finally:
+        (S.Solver._collect, S.Solver._verify, S.Solver.solve,
+         ckpt.Checkpoint.save) = orig
+
+
+def checkpoints_trail_verification(ev) -> int:
+    """Replay watch_cli's events: no checkpoint may name a next epoch past
+    an epoch whose hits are still unverified. Returns the mid-scan
+    checkpoints seen."""
+    unverified, mid = set(), 0
+    for e in ev:
+        if e[0] == "drain" and e[2]:
+            unverified.add(e[1])
+        elif e[0] in ("verify", "result"):
+            unverified.clear()
+        elif e[0] == "checkpoint" and e[1]["next_epoch"]:
+            mid += 1
+            if unverified and min(unverified) < e[1]["next_epoch"]:
+                raise AssertionError(
+                    f"checkpoint {e[1]} passes unverified epochs "
+                    f"{sorted(unverified)}")
+    return mid
+
+
+def win_line(key: int) -> str:
+    from bsgs_tpu_torch.utils import codecs, ecpy
+
+    return f"{key:064x} {codecs.format_pubkey(ecpy.mul(key))}"
+
+
+def read_win() -> list:
+    with open("win.txt") as f:
+        return f.read().splitlines()
+
+
+def cli_w26(path_launches: dict) -> dict:
+    """The command line at w=2^26 (htsz 20, N=2^18, T=16), in the current
+    directory: a planted compressed pubkey in a range of three epochs;
+    --infile with two planted pubkeys and a garbage line, every checkpoint
+    recorded; --resume from the recorded checkpoint that stops before the
+    second key's epoch (found in fewer drained epochs); --resume refused on
+    another --w and on another pubkey (exit 2); --gen-only (build, save,
+    reload, spot checks: file size and seconds), then again (the artifact
+    verified); an 8-epoch scan of a pubkey with no key in range (the
+    progress line's rate); a planted key at --n-offsets 1000 (a narrow
+    chain layout). Its launches are the "cli w=2^26" path."""
+    import torch
+
+    from bsgs_tpu_torch.models import solver as S
+    from bsgs_tpu_torch.ops import _cuda
+    from bsgs_tpu_torch.utils import artifacts as A, codecs, ecpy
+
+    rng = random.Random(SEED + 26)
+    kpe = S.SolverConfig(w=1 << 26).keys_per_epoch
+    pk = 1 << 41
+    pke = pk + 3 * kpe - 1
+    common = ["--w", 26, "--pk", f"{pk:x}", "--pke", f"{pke:x}"]
+    out = {}
+    _cuda.reset_launches()
+
+    key = pk + kpe + rng.randrange(kpe)
+    with watch_cli() as ev:
+        rc, text, _, took = run_cli(
+            ["--pub", codecs.format_pubkey(ecpy.mul(key))] + common,
+            "planted key, epoch 1")
+    res = [e[1] for e in ev if e[0] == "result"]
+    if (rc != 0 or f"KEY FOUND: {key:#x}" not in text
+            or read_win() != [win_line(key)] or res[0].key != key):
+        raise AssertionError(f"cli planted key: {rc} {text[-300:]}")
+    out["planted"] = dict(seconds=took, epochs=res[0].epochs)
+
+    keys = (pk + rng.randrange(kpe), pk + 2 * kpe + rng.randrange(kpe))
+    Path("pubs.txt").write_text(
+        f"{codecs.format_pubkey(ecpy.mul(keys[0]))}\nnot-a-pubkey\n"
+        f"{codecs.format_pubkey(ecpy.mul(keys[1]), compressed=False)}\n")
+    infile = common + ["--infile", "pubs.txt", "--checkpoint-interval", 0]
+    with watch_cli() as ev:
+        rc, text, err, took = run_cli(infile, "--infile, 2 keys + garbage")
+    res = [e[1] for e in ev if e[0] == "result"]
+    if (rc != 0 or read_win() != [win_line(k) for k in keys]
+            or "skipping pubkey #1" not in err or len(res) != 2):
+        raise AssertionError(f"cli --infile: {rc} {text[-300:]} {err}")
+    mid = checkpoints_trail_verification(ev)
+    stops = [e[1] for e in ev if e[0] == "checkpoint"
+             and e[1]["pub_index"] == 2 and e[1]["next_epoch"]]
+    if not stops:
+        raise AssertionError("no checkpoint was written in the second scan")
+    with open("resume.json", "w") as f:
+        json.dump(stops[-1], f)
+    out["infile"] = dict(seconds=took, epochs=[r.epochs for r in res],
+                         mid_scan_checkpoints=mid,
+                         resume_from=stops[-1]["next_epoch"])
+
+    os.unlink("win.txt")
+    with watch_cli() as ev:
+        rc, text, _, took = run_cli(infile + ["--resume", "resume.json"],
+                                    "--resume before the second key")
+    res2 = [e[1] for e in ev if e[0] == "result"]
+    if (rc != 0 or read_win() != [win_line(keys[1])] or len(res2) != 1
+            or res2[0].epochs >= res[1].epochs):
+        raise AssertionError(f"cli --resume: {rc} {text[-300:]} {res2}")
+    out["resume"] = dict(seconds=took, epochs=res2[0].epochs,
+                         epochs_unresumed=res[1].epochs)
+    log(f"cli: resumed at pubkey #2, epoch {stops[-1]['next_epoch']}: key "
+        f"found after {res2[0].epochs} drained epochs against "
+        f"{res[1].epochs} without the checkpoint")
+
+    Path("other.txt").write_text(
+        Path("pubs.txt").read_text().splitlines()[0] + "\nnot-a-pubkey\n"
+        + f"{codecs.format_pubkey(ecpy.mul(keys[1] + 1))}\n")
+    refusals = {}
+    for label, argv in (
+            ("another --w", infile[:1] + [27] + infile[2:]),
+            ("another pubkey", [a if a != "pubs.txt" else "other.txt"
+                                for a in infile])):
+        rc, text, err, _ = run_cli(argv + ["--resume", "resume.json"],
+                                   f"--resume with {label}")
+        if rc != 2 or "cannot resume" not in err or "building" in text:
+            raise AssertionError(f"cli --resume with {label}: {rc} {err}")
+        refusals[label] = err.strip()
+    out["refusals"] = refusals
+
+    t_parts = {"build": (S, "build_table"), "save": (A, "save_baby_table"),
+               "load": (A, "load_baby_table")}
+    with timed_parts(t_parts) as took_parts:
+        rc, text, _, took = run_cli(["--gen-only", "--w", 26, "--cache-dir",
+                                     "cache"], "--gen-only w=2^26")
+    path = A.baby_table_path("cache", 1 << 26, 20)
+    if rc != 0 or "finished ok" not in text or not os.path.exists(path):
+        raise AssertionError(f"cli --gen-only: {rc} {text[-300:]}")
+    size = os.path.getsize(path)
+    rc, text, _, took2 = run_cli(["--gen-only", "--w", 26, "--cache-dir",
+                                  "cache"], "--gen-only, artifact present")
+    if rc != 0 or "verifying artifact" not in text:
+        raise AssertionError(f"cli --gen-only again: {rc} {text[-300:]}")
+    out["gen_only"] = dict(
+        seconds=took, seconds_present=took2, file_bytes=size,
+        **{f"{k}_s": sum(v) for k, v in took_parts.items()})
+    log(f"cli: w=2^26 artifact {size / 2**20:.1f} MiB (kind device); "
+        f"build {sum(took_parts['build']):.3f} s, save "
+        f"{sum(took_parts['save']):.3f} s, load with spot checks "
+        f"{sum(took_parts['load']):.3f} s; a second --gen-only loaded and "
+        f"verified it in {took2:.2f} s")
+    os.unlink(path)
+
+    far = (1 << 200) + 777
+    rc, text, _, took = run_cli(
+        ["--pub", codecs.format_pubkey(ecpy.mul(far)), "--w", 26, "--pk",
+         f"{pk:x}", "--pke", f"{pk + 8 * kpe - 1:x}"],
+        "8 epochs, no key in range")
+    rates = [float(r) * 1e6 for r in re.findall(r"([\d.]+) Mgsteps/s", text)]
+    if rc != 0 or "exhausted range" not in text or not rates:
+        raise AssertionError(f"cli scan: {rc} {text[-300:]}")
+    out["progress_rate"] = rates[-1]
+
+    kpe = S.SolverConfig(w=1 << 26, n_offsets=1000).keys_per_epoch
+    key = pk + kpe + rng.randrange(kpe)
+    rc, text, _, took = run_cli(
+        ["--pub", codecs.format_pubkey(ecpy.mul(key)), "--w", 26,
+         "--n-offsets", 1000, "--pk", f"{pk:x}",
+         "--pke", f"{pk + 3 * kpe - 1:x}"],
+        "--n-offsets 1000 (chains of 8 x 1)")
+    if rc != 0 or read_win() != [win_line(key)]:
+        raise AssertionError(f"cli --n-offsets 1000: {rc} {text[-300:]}")
+    out["n_offsets_1000"] = dict(seconds=took)
+    read_launches("cli w=2^26", path_launches)
+    torch.cuda.synchronize()
+    return out
+
+
+def cli_w30(path_launches: dict) -> dict:
+    """The command line at w=2^30 (streamed, rescan positions, deferred
+    verification): a planted key of epoch 1 in a range of three epochs,
+    checkpoints written at every callback; none may pass the pooled,
+    unverified epoch. Its launches are the "cli w=2^30" path."""
+    from bsgs_tpu_torch.models import solver as S
+    from bsgs_tpu_torch.ops import _cuda
+    from bsgs_tpu_torch.utils import codecs, ecpy
+
+    rng = random.Random(SEED + 30)
+    kpe = S.SolverConfig(w=1 << 30).keys_per_epoch
+    pk = 1 << 61
+    key = pk + kpe + rng.randrange(kpe)
+    _cuda.reset_launches()
+    with watch_cli() as ev:
+        rc, text, _, took = run_cli(
+            ["--pub", codecs.format_pubkey(ecpy.mul(key)), "--w", 30, "--pk",
+             f"{pk:x}", "--pke", f"{pk + 3 * kpe - 1:x}",
+             "--checkpoint-interval", 0], "w=2^30, planted key, epoch 1")
+    res = [e[1] for e in ev if e[0] == "result"]
+    if rc != 0 or read_win() != [win_line(key)] or res[0].epochs < 3:
+        raise AssertionError(f"cli w=2^30: {rc} {text[-300:]} {res}")
+    mid = checkpoints_trail_verification(ev)
+    nexts = [e[1]["next_epoch"] for e in ev if e[0] == "checkpoint"
+             and e[1]["next_epoch"]]
+    verifies = [e for e in ev if e[0] == "verify"]
+    if not nexts or max(nexts) > 1 or len(verifies) != 1:
+        raise AssertionError(f"cli w=2^30 checkpoints {nexts}, "
+                             f"verifications {verifies}")
+    log(f"cli: w=2^30 key {key:#x} found after {res[0].epochs} drained "
+        f"epochs, verified once at the scan's end; the mid-scan checkpoints "
+        f"named next epochs {nexts}: none passed the pooled epoch 1")
+    read_launches("cli w=2^30", path_launches)
+    return dict(seconds=took, epochs=res[0].epochs, checkpoints=nexts,
+                mid_scan_checkpoints=mid)
+
+
+def cli_tune(mem: dict) -> dict:
+    """--tune on the card, and the tuner's estimates of the table's bytes
+    and the build's peak held against what phases 3 and 7 measured
+    (TUNER_MARGIN); its epoch transients are logged beside the scans'."""
+    from bsgs_tpu_torch.utils import tuner
+
+    rc, text, _, _ = run_cli(["--tune"], "--tune")
+    if rc != 0 or "suggested: --w" not in text:
+        raise AssertionError(f"cli --tune: {rc} {text}")
+    log(f"cli --tune:\n{text.rstrip()}")
+    out = dict(report=text)
+    for w, got in mem.items():
+        plan = tuner.plan(w)
+        rows = {"table": (plan.est_table_bytes, got["table"]),
+                "build peak": (plan.est_build_peak_bytes, got["build_peak"]),
+                "epoch transients": (plan.est_transient_bytes,
+                                     got["scan_transients"])}
+        out[w] = {k: dict(estimate=e, measured=m) for k, (e, m) in
+                  rows.items()}
+        for k, (e, m) in rows.items():
+            log(f"tuner w=2^{w.bit_length() - 1} {k}: estimate "
+                f"{e / 2**20:.1f} MiB, measured {m / 2**20:.1f} MiB "
+                f"({100 * (e - m) / m:+.1f}%)")
+        for k in ("table", "build peak"):
+            e, m = rows[k]
+            if abs(e - m) > TUNER_MARGIN * m:
+                raise AssertionError(
+                    f"tuner w=2^{w.bit_length() - 1} {k}: estimate {e} "
+                    f"against {m} measured, beyond {TUNER_MARGIN:.0%}")
+    # the suggested geometry itself, on this card: a planted key through
+    # the command line, its peak held against the tuner's
+    import torch
+
+    from bsgs_tpu_torch.models import solver as S
+    from bsgs_tpu_torch.utils import codecs, ecpy
+
+    flags = text.split("suggested: ")[1].splitlines()[0].split()
+    plan = tuner.plan(int(flags[flags.index("--w") + 1]))
+    kpe = S.SolverConfig(w=plan.w).keys_per_epoch
+    pk = 1 << 62
+    key = pk + kpe + random.Random(SEED + 62).randrange(kpe)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rc, text, _, took = run_cli(
+        flags + ["--pub", codecs.format_pubkey(ecpy.mul(key)), "--pk",
+                 f"{pk:x}", "--pke", f"{pk + 3 * kpe - 1:x}"],
+        f"the suggested geometry, w={plan.w}")
+    peak = torch.cuda.max_memory_allocated() - before
+    want = max(plan.est_build_peak_bytes, plan.scan_bytes)
+    if rc != 0 or read_win() != [win_line(key)]:
+        raise AssertionError(f"cli at the suggested w={plan.w}: {rc} "
+                             f"{text[-300:]}")
+    if abs(want - peak) > TUNER_MARGIN * peak:
+        raise AssertionError(f"suggested w={plan.w}: peak {peak} against "
+                             f"the tuner's {want}")
+    out["suggested"] = dict(w=plan.w, seconds=took, peak=peak, estimate=want,
+                            device_bytes=tuner.device_memory_bytes())
+    log(f"tuner: the suggested w={plan.w} (htsz {plan.htsz}) built and "
+        f"found a planted key in {took:.1f} s; peak {peak / 2**30:.2f} GiB "
+        f"against the tuner's {want / 2**30:.2f} GiB, of "
+        f"{tuner.device_memory_bytes() / 2**30:.2f} GiB on the card")
+    log(f"tuner: table and build-peak estimates within {TUNER_MARGIN:.0%} "
+        f"of the measured bytes at w=2^26 and w=2^30; implied constants: "
+        f"BUILD_BYTES_PER_KEY "
+        f"{(mem[1 << 26]['build_peak'] - mem[1 << 26]['table']) / 2**26:.2f}"
+        f", STREAMED_BUILD_BYTES_PER_BUCKET "
+        f"{(mem[1 << 30]['build_peak'] - mem[1 << 30]['table']) / 2**24:.2f}"
+        f" (2^24 buckets), "
+        f"EPOCH_BYTES_PER_PAIR "
+        f"{mem[1 << 26]['scan_transients'] / (16 << 18):.2f} (w=2^26), "
+        f"{mem[1 << 30]['scan_transients'] / (16 << 18):.2f} (w=2^30)")
+    return out
+
+
+def check_layouts(device) -> dict:
+    """Which chain layouts the epoch kernels take: one phase (T=4,
+    N=4096) under each layout, its key plane equal to the main layout's
+    (checked against the plain versions in check_kernels) and, for two
+    narrow layouts, to the plain versions on the CPU."""
+    import numpy as np
+    import torch
+
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
+
+    rng = np.random.default_rng(SEED + 11)
+    T, N = 4, 4096
+    planes = [random_planes(rng, 16, m, device) for m in (N, N, T, T)]
+    ox, oy, cx, cy = planes
+    ox[:, 17] = cx[:, 1]  # an exact lane
+    want = EK.epoch_landing_keys(cx, cy, ox, oy, htsz=20)
+    cpu = [p.cpu() for p in planes]
+    out = {}
+    for c, w in ((16, 256), (16, 128), (16, 64), (16, 16), (8, 32), (8, 1),
+                 (4, 4), (2, 2), (1, 1)):
+        got = EK.epoch_landing_keys(cx, cy, ox, oy, htsz=20, chunk_c=c,
+                                    lanes_w=w)
+        ok = torch.equal(got, want)
+        if ok and (c, w) in ((8, 1), (1, 1)):
+            plain = EK.epoch_landing_keys(cpu[2], cpu[3], cpu[0], cpu[1],
+                                          htsz=20, chunk_c=c, lanes_w=w)
+            ok = torch.equal(got.cpu(), plain)
+        out[f"{c}x{w}"] = ok
+    log(f"chain layouts (chunk_c x lanes_w) the epoch kernels take, key "
+        f"plane equal: {out}")
+    if not all(out.values()):
+        raise AssertionError(f"a chain layout gave another key plane: {out}")
+    return out
+
+
+def cost_of_128_jobs(solver, pk: int) -> dict:
+    """What T=128 costs per epoch against T=16 on the main path's table:
+    the host's time for an epoch's centers (ec.host_row, one exact addition
+    a center) and 3-epoch scans of a pubkey with no key in range; then a
+    profile of T=128's epochs (device time by kernel, busy share)."""
+    import dataclasses
+
+    import torch
+
+    from bsgs_tpu_torch.models import solver as S
+    from bsgs_tpu_torch.utils import ecpy
+
+    pub = ecpy.mul((1 << 201) + 99)
+    q0 = ecpy.sub(pub, ecpy.mul(pk))
+    out = {}
+    for t in (16, 128):
+        cfg = dataclasses.replace(solver.cfg, jobs_per_epoch=t)
+        s = S.Solver(cfg, baby=solver.baby, device=solver.device)
+        t0 = time.perf_counter()
+        for e in range(4):
+            s.epoch_centers(q0, e * t, t)
+        centers_ms = 1e3 * (time.perf_counter() - t0) / 4
+        s.solve(pub, pk, pk + cfg.keys_per_epoch - 1, max_epochs=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = s.solve(pub, pk, pk + 3 * cfg.keys_per_epoch - 1, max_epochs=3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[t] = dict(centers_ms=centers_ms, epoch_ms=1e3 * wall / 3,
+                      rate=res.giant_steps / wall)
+        log(f"T={t}: centers {centers_ms:.2f} ms of host time per epoch; "
+            f"3-epoch scan {1e3 * wall / 3:.2f} ms per epoch, "
+            f"{res.giant_steps / wall:.1f} giant-steps/s")
+        if t == 128:
+            profile_scan(s, pub, pk, epochs=3)
+    return out
+
+
+
 def main() -> int:
     # one card: on a host with several, use only the first visible one
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -1178,7 +1624,7 @@ def main() -> int:
     try:
         from bsgs_tpu_torch.models import solver as S, table as T
         from bsgs_tpu_torch.ops import _cuda
-        from bsgs_tpu_torch.utils import ecpy
+        from bsgs_tpu_torch.utils import checkpoint as ckpt, ecpy
     except ImportError as e:
         print(f"chip_smoke: the bsgs_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -1216,17 +1662,23 @@ def main() -> int:
 
     # 3-4. the main path, counted: table build, solver set-up, planted solve
     path_launches = {}
+    mem = {}  # w -> device bytes measured: table, build peak, scan transients
     cfg = S.SolverConfig(w=1 << 26)
     _cuda.reset_launches()
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     baby = S.build_table(cfg, device=device)
     torch.cuda.synchronize()
     t_table = time.time() - t0
     stats = T.table_stats(baby)
+    mem[cfg.w] = dict(table=torch.cuda.memory_allocated() - before,
+                      build_peak=torch.cuda.max_memory_allocated() - before)
     log(f"phase 3: w=2^26 table built in {t_table:.2f} s (peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); "
-        f"{stats}")
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the "
+        f"table holds {mem[cfg.w]['table']} B, the build peaked "
+        f"{mem[cfg.w]['build_peak']} B above what was allocated before "
+        f"it); {stats}")
     torch.cuda.reset_peak_memory_stats()
     if stats.entries != cfg.w or stats.max_bucket > cfg.window:
         raise AssertionError(f"bad table: {stats}")
@@ -1266,13 +1718,46 @@ def main() -> int:
     pub = ecpy.mul((1 << 200) + 12345)
     solver.solve(pub, pk, pk + cfg.keys_per_epoch - 1, max_epochs=1)
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     rates, scan = timed_scans(solver, pub, pk, epochs=8, repeats=3)
+    mem[cfg.w]["scan_transients"] = torch.cuda.max_memory_allocated() - held
     log(f"phase 6: 8-epoch scans of {scan.giant_steps} giant steps: "
         f"{', '.join(f'{r:.1f}' for r in rates)} giant-steps/s "
         f"(best {max(rates):.1f}) on {card}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"{mem[cfg.w]['scan_transients']} B above the table and offsets")
     profile_scan(solver, pub, pk, epochs=4)
-    count_syncs(solver, pub, pk, epochs=4)
+    waits = count_syncs(solver, pub, pk, epochs=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        writer = ckpt.CheckpointWriter(os.path.join(tmp, "cw.json"), "fp",
+                                       0.0)
+        lines = []
+        waits_cb = count_syncs(
+            solver, pub, pk, epochs=4, label=" (progress, on_epoch set)",
+            on_epoch=lambda e, st: writer.maybe_write(0, "x", e + 1, st),
+            progress=lambda done, total, st, dt: lines.append(
+                f"epoch {done}/{total} {st / dt / 1e6:.2f} Mgsteps/s"))
+    if waits_cb != waits or len(lines) != 4:
+        raise AssertionError(f"callbacks: {waits_cb} host waits against "
+                             f"{waits}, {len(lines)} progress lines")
+    torch.cuda.synchronize()
+
+    # the command line at w=2^26, in a scratch directory: its own table,
+    # solves, checkpoints, resume, artifact, progress line
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            cli_out = dict(w26=cli_w26(path_launches))
+        finally:
+            os.chdir(here)
+    log(f"cli: progress-line rate {cli_out['w26']['progress_rate']:.1f} "
+        f"giant-steps/s (8 epochs through cli.main) beside phase 6's "
+        f"{', '.join(f'{r:.1f}' for r in rates)} (Solver.solve) in this run; "
+        f"host waits per epoch with the callbacks {waits_cb / 4:g}, without "
+        f"{waits / 4:g}")
+    cli_out["layouts"] = check_layouts(device)
+    cli_out["jobs_128"] = cost_of_128_jobs(solver, pk)
     torch.cuda.synchronize()
 
     # 7. the streamed path: w=2^30, rescan positions, deferred verification
@@ -1290,12 +1775,15 @@ def main() -> int:
                                                     "w=2^30 tile")
     torch.cuda.synchronize()
     _cuda.reset_launches()
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     baby = S.build_table(cfg, device=device)
     torch.cuda.synchronize()
     t_table = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
+    mem[cfg.w] = dict(table=torch.cuda.memory_allocated() - before,
+                      build_peak=torch.cuda.max_memory_allocated() - before)
     stats = T.table_stats(baby)
     log(f"phase 7: w=2^30 streamed table built in {t_table:.2f} s (peak "
         f"device memory {peak:.2f} GiB; dense "
@@ -1346,7 +1834,10 @@ def main() -> int:
     solver.solve(pub, pk, pk + cfg.keys_per_epoch - 1, max_epochs=1)
     torch.cuda.synchronize()
     before = dict(lstats)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     rates, scan = timed_scans(solver, pub, pk, epochs=32, repeats=2)
+    mem[cfg.w]["scan_transients"] = torch.cuda.max_memory_allocated() - held
     log(f"phase 7: 32-epoch scans of {scan.giant_steps} giant steps at "
         f"w=2^30: {', '.join(f'{r:.1f}' for r in rates)} giant-steps/s "
         f"(best {max(rates):.1f}) on {card}; per scan "
@@ -1393,11 +1884,22 @@ def main() -> int:
     baby.pos_lo[fp_row, fp_col] = 0
     torch.cuda.synchronize()
 
+    # the command line at w=2^30, and the tuner against what was measured
+    del solver, baby
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            cli_out["w30"] = cli_w30(path_launches)
+            cli_out["tune"] = cli_tune(mem)
+        finally:
+            os.chdir(here)
+    log(f"cli: {json.dumps(cli_out, default=str)}")
+    torch.cuda.empty_cache()
+
     # 8. where a table build's time goes: both builds profiled, one tile
     # advance at each path's tile (four launches and nothing else), one
     # residue scan
-    del solver, baby
-    torch.cuda.empty_cache()
     builds = build_profiles(device)
     for adv in builds["tile_advance"]:
         names = [r["kernel"] for r in adv["by_kernel"]]

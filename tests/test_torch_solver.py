@@ -223,10 +223,33 @@ def rescan_case():
     pke = RESCAN_PK + 4 * jcfg.keys_per_epoch - 1
     want = JS.Solver(jcfg, baby=jt).solve(pub, RESCAN_PK, pke)
     assert want.key == k and want.hits_checked >= 3
+    want_events = _events(
+        JS.Solver(dataclasses.replace(jcfg, verify_defer_epochs=1), baby=jt),
+        pub, pke)
     baby = convert.baby_table(
         w=jt.w, htsz=jt.htsz, window=jt.window, offsets=jt.offsets,
         dense=dense, pos_lo=np.asarray(jt.pos_lo), tile=64, device="cpu")
-    return dict(k=k, pub=pub, pke=pke, want=want, baby=baby)
+    return dict(k=k, pub=pub, pke=pke, want=want, baby=baby,
+                want_events=want_events)
+
+
+def _events(solver, pub, pke):
+    """A 3-epoch scan's drains and callbacks, in the order they happen."""
+    events = []
+    collect = solver._collect
+
+    def recording(pub_, pk, rec):
+        events.append(("drain", rec[0]))
+        return collect(pub_, pk, rec)
+
+    solver._collect = recording
+    res = solver.solve(
+        pub, RESCAN_PK, pke, max_epochs=3,
+        on_epoch=lambda e, steps: events.append(("on_epoch", e, steps)),
+        progress=lambda done, total, steps, dt: events.append(
+            ("progress", done, total, steps)))
+    assert res.key is None and res.epochs == 3
+    return events
 
 
 def _count_batches(baby):
@@ -247,8 +270,9 @@ def _count_batches(baby):
     return calls, orig
 
 
-def _rescan_solver(baby):
-    cfg = S.SolverConfig(chunk_c=2, lanes_w=4, epoch_phases=2, **RESCAN_GEOM)
+def _rescan_solver(baby, **kw):
+    cfg = S.SolverConfig(chunk_c=2, lanes_w=4, epoch_phases=2, **RESCAN_GEOM,
+                         **kw)
     return S.Solver(cfg, baby=baby, device="cpu")
 
 
@@ -268,13 +292,12 @@ def test_streamed_solve_matches_jax_solver(rescan_case):
     assert calls == {"batch": 1, "single": 0}
 
 
-def test_streamed_solve_without_deferral_verifies_per_drain(rescan_case,
-                                                            monkeypatch):
+def test_streamed_solve_without_deferral_verifies_per_drain(rescan_case):
     c = rescan_case
-    monkeypatch.setattr(S, "VERIFY_DEFER_EPOCHS", 0)
     calls, orig = _count_batches(c["baby"])
     try:
-        got = _rescan_solver(c["baby"]).solve(c["pub"], RESCAN_PK, c["pke"])
+        got = _rescan_solver(c["baby"], verify_defer_epochs=0).solve(
+            c["pub"], RESCAN_PK, c["pke"])
     finally:
         c["baby"].lookup_fn = orig
     assert got.key == c["k"]
@@ -295,6 +318,67 @@ def test_scan_end_verifies_pooled_hits(rescan_case):
     assert got.key is None and got.epochs == 3
     assert got.hits_checked >= 2
     assert calls == {"batch": 1, "single": 0}
+
+
+def test_callbacks_trail_verification_as_the_jax_solver_does(rescan_case):
+    """Drains, on_epoch and progress calls of a 3-epoch scan with hits
+    pooled over one drain: the same events in the same order as the JAX
+    solver's; no callback fires while a hit of its epoch is pooled."""
+    got = _events(_rescan_solver(rescan_case["baby"], verify_defer_epochs=1),
+                  rescan_case["pub"], rescan_case["pke"])
+    assert got == rescan_case["want_events"]
+    # epoch 0's false positive holds its callbacks until epoch 1 drains
+    assert [e[:2] for e in got[:4]] == [("drain", 0), ("drain", 1),
+                                        ("on_epoch", 0), ("progress", 1)]
+
+
+def test_start_epoch_skips_the_epochs_before_it(solver):
+    """A scan from epoch 2 finds a key of epoch 2 in one drained epoch and
+    cannot find a key of epoch 0; its callbacks count epochs from 2."""
+    cfg = solver.cfg
+    pk = 3_000_000
+    k = pk + 2 * cfg.keys_per_epoch + 77
+    seen = []
+    res = solver.solve(ecpy.mul(k), pk, pk + 4 * cfg.keys_per_epoch,
+                       start_epoch=2, on_epoch=lambda e, st: seen.append(e))
+    assert res.key == k and res.epochs <= cfg.pipeline
+    res = solver.solve(ecpy.mul(pk + 77), pk, pk + 4 * cfg.keys_per_epoch,
+                       start_epoch=2, on_epoch=lambda e, st: seen.append(e))
+    assert res.key is None and res.epochs == 3
+    assert seen[-3:] == [2, 3, 4]
+
+
+def test_epoch_centers_take_any_count(solver):
+    """128 centers (beyond the 64 of a host fill in the JAX package) equal
+    the exact host points, an infinite first center included."""
+    cfg = solver.cfg
+    q0 = ecpy.mul(987654321)
+    cx, cy, cinf = solver.epoch_centers(q0, 3, 128)
+    for t in (0, 64, 127):
+        c = (3 + t) * cfg.jobs_span + cfg.n_offsets
+        pt = ecpy.sub(q0, ecpy.mul(c * cfg.stride))
+        assert sum(int(v) << (16 * i) for i, v in enumerate(cx[t])) == pt[0]
+        assert sum(int(v) << (16 * i) for i, v in enumerate(cy[t])) == pt[1]
+    assert not cinf.any()
+    c0 = (5 * cfg.jobs_span + cfg.n_offsets) * cfg.stride
+    cx, cy, cinf = solver.epoch_centers(ecpy.mul(c0), 5, 70)
+    assert cinf.tolist() == [True] + [False] * 69
+    assert not cx[0].any() and not cy[0].any()
+
+
+@pytest.mark.parametrize("n, jobs, want", [
+    (1 << 18, 4, (16, 256)), (4096, 4, (16, 256)), (1024, 4, (16, 64)),
+    (8, 4, (8, 1)), (12, 4, (4, 1)), (1000, 32, (8, 1)), (7, 1, (1, 1)),
+    (1 << 18, 32, (16, 256))])
+def test_chain_layout(n, jobs, want):
+    assert S.chain_layout(n, jobs) == want
+
+
+def test_chain_layout_refuses_a_fold_without_warp_lanes():
+    # 4 * 65,537 / 1 totals a phase need a fold, and W=1 cannot take one
+    with pytest.raises(ValueError, match="unfused"):
+        S.chain_layout(65537, 4)
+    assert S.chain_layout(65536 * 32, 4) == (16, 256)
 
 
 def test_deferral_applies_to_rescan_tables_only(jax_table):
@@ -321,12 +405,15 @@ def test_build_table_routes_big_w_to_the_streamed_build(monkeypatch):
     S.build_table(S.SolverConfig(w=(1 << 28) - 1, htsz=22), device="cpu")
     assert [c[:3] for c in calls] == [("streamed", 1 << 28, 22),
                                       ("device", (1 << 28) - 1, 22)]
-    # the streamed build picks its own positions: rescan at this size
-    assert "positions" not in calls[0][3]
-    # 6 B per slot with the hint, 4 below 2^28
+    # the config's positions go to the streamed build ("auto": rescan at
+    # this size)
+    assert calls[0][3]["positions"] == "auto"
+    # 6 B per slot with the hint, 8 with the position plane, 4 below 2^28
     big = S.SolverConfig(w=1 << 30)
     assert big.htsz == 24
     assert S.table_bytes_per_slot(big) == 6
+    assert S.table_bytes_per_slot(
+        dataclasses.replace(big, positions="mirror")) == 8
     assert S.table_bytes_per_slot(S.SolverConfig(w=1 << 26)) == 4
     S.check_table_fits((1 << 24) * 128 * 6, mem_bytes=80 << 30)
     with pytest.raises(ValueError, match="exceeds"):
@@ -352,7 +439,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert len(mods) >= 10
+    assert len(mods) >= 16
+    assert {"bsgs_tpu_torch.cli", "bsgs_tpu_torch.utils.codecs",
+            "bsgs_tpu_torch.utils.checkpoint", "bsgs_tpu_torch.utils.native",
+            "bsgs_tpu_torch.utils.artifacts",
+            "bsgs_tpu_torch.utils.tuner"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -388,6 +479,9 @@ def test_entry_points_refuse_the_cpu_by_default(jax_table):
 def test_config_defaults_match_bench_geometry():
     cfg = S.SolverConfig(w=1 << 26)
     assert (cfg.htsz, cfg.n_offsets, cfg.jobs_per_epoch, cfg.epoch_phases,
-            cfg.pipeline, cfg.table_tile) == (
-        20, 1 << 18, 16, 4, 3, 1 << 18)
+            cfg.pipeline, cfg.table_tile, cfg.positions,
+            cfg.verify_defer_epochs) == (
+        20, 1 << 18, 16, 4, 3, 1 << 18, "auto", S.VERIFY_DEFER_EPOCHS)
+    assert S.chain_layout(cfg.n_offsets, cfg.jobs_per_epoch // cfg.phases) \
+        == (cfg.chunk_c, cfg.lanes_w)
     assert dataclasses.replace(cfg, w=64).stride == 128
