@@ -13,10 +13,13 @@ Hit record: a flat index into the epoch's probe space. With phases = 1:
   [2TN, 3TN)     exact landing (M == +-O_j)           -> m = c_t -+ j
   [3TN, 3TN+T)   center probe of M_t                  -> m = c_t
 With phases > 1 the first three blocks repeat per phase (decode_flat_phased).
+An index is a uint32, held as int32 bits on the device (hit_indices reads
+it back); solver.SolverConfig keeps the probe space below FILL.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import epoch_kernel as EK, planar as PL
@@ -24,6 +27,13 @@ from . import table as T
 
 # Unused hit slots (0xFFFFFFFF as int32 bits).
 FILL = -1
+
+
+def hit_indices(idxs: np.ndarray) -> np.ndarray:
+    """A hit buffer's int32 bits read back -> its flat indices as uint32,
+    the FILL slots dropped (bsgs_tpu's rule: every other value is a hit)."""
+    flat = idxs.view(np.uint32)
+    return flat[flat != np.uint32(FILL & 0xFFFFFFFF)]
 
 
 def _masks_to_hits(mask_parts, hit_cap: int):
@@ -75,13 +85,22 @@ def decode_flat_phased(flat: int, t_jobs: int, n: int, phases: int):
     return (1, 2, 4)[code_i], p * per + t_local, j + 1
 
 
+def dense_probe(dense):
+    """The probe of a table held whole on this device: (bucket, disc) int32
+    streams -> found, one probe kernel launch (table.probe_keys)."""
+    return lambda bucket, disc: T.probe_keys(bucket, disc, dense)
+
+
 def fused_epoch_probes(centers_x, centers_y, centers_inf, ox_pl, oy_pl,
-                       dense, *, htsz: int, chunk_c: int = EK.CHUNK_C,
+                       probe, *, htsz: int, chunk_c: int = EK.CHUNK_C,
                        lanes_w: int = EK.LANES_W, hit_cap: int = 512,
                        phases: int = 1):
-    """One epoch probed against the dense table. Centers are rows (T, 16)
-    int32 and centers_inf (T,) bool; offsets are planar (16, N). Each
-    landing stream of a phase is one probe.
+    """One epoch probed through ``probe`` (bucket, disc) -> found: a
+    dense_probe, or parallel/sharded_table's collective probe of a table
+    split over ranks (bsgs_tpu passes one closure per stream; in the port
+    the three streams take the same one). Centers are rows (T, 16) int32
+    and centers_inf (T,) bool; offsets are planar (16, N). Each landing
+    stream of a phase is one probe.
 
     ``phases`` splits the T jobs into groups whose key planes are computed
     and probed one after another, so a phase's (8, T/phases*N) plane is
@@ -102,12 +121,12 @@ def fused_epoch_probes(centers_x, centers_y, centers_inf, ox_pl, oy_pl,
             ox_pl, oy_pl, htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w,
         )
         exact = keys[4] != 0
-        found_p = T.probe_keys(keys[0], keys[1], dense)
-        found_m = T.probe_keys(keys[2], keys[3], dense)
+        found_p = probe(keys[0], keys[1])
+        found_m = probe(keys[2], keys[3])
         parts += [found_p & ~exact, found_m & ~exact, exact]
     hc_hi, hc_lo = PL.x_prefix64(centers_x.T.long())
     bc, dc = T.bucket_disc(hc_hi[0], hc_lo[0], htsz)
-    found_c = T.probe_keys(PL.u32_bits(bc), PL.u32_bits(dc), dense)
+    found_c = probe(PL.u32_bits(bc), PL.u32_bits(dc))
     return _masks_to_hits(parts + [found_c | centers_inf], hit_cap)
 
 
@@ -119,6 +138,7 @@ def run_epoch_fused(centers_x, centers_y, centers_inf, ox_pl, oy_pl, dense,
     a 0-d tensor, and giant_steps, the probed landings (2 per offset and
     center pair plus each center)."""
     idxs, cnt = fused_epoch_probes(
-        centers_x, centers_y, centers_inf, ox_pl, oy_pl, dense, htsz=htsz,
-        chunk_c=chunk_c, lanes_w=lanes_w, hit_cap=hit_cap, phases=phases)
+        centers_x, centers_y, centers_inf, ox_pl, oy_pl, dense_probe(dense),
+        htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w, hit_cap=hit_cap,
+        phases=phases)
     return idxs, cnt[0], (2 * ox_pl.shape[1] + 1) * centers_x.shape[0]

@@ -1,4 +1,5 @@
-"""End-to-end BSGS solver orchestration (single device).
+"""End-to-end BSGS solver orchestration on one device
+(parallel/striped.MeshSolver runs the same loop over several).
 
 Counterpart of the fused path of ``bsgs_tpu/models/solver.py``: build the
 baby table and the giant offsets on the device, scan the key range in
@@ -10,7 +11,8 @@ made on the host and copied from pinned memory without waiting; the
 ``int(cnt)`` in ``_collect`` is the only point per epoch where the host
 waits for the device.
 
-Tables of w >= 2^28 are built streamed (table.build_baby_table_streamed).
+Tables of w >= 2^28 are built streamed (table.build_baby_table_streamed;
+parallel/sharded_table.py splits one by bucket range over several cards).
 On a rescan table a position lookup regenerates part of the baby stream,
 so ``solve`` pools the hits of several drained epochs and verifies them in
 one batch (``SolverConfig.verify_defer_epochs``); its ``on_epoch`` and
@@ -34,6 +36,14 @@ from . import checker, giant, table as tbl
 
 # Device memory kept free beside the dense table for the scan's transients.
 MEMORY_RESERVE = 3 << 30
+
+# CSR offsets and baby positions are uint32, and a mirror position of 2^32
+# would read as 0, the empty mark: the largest w a table takes.
+W_MAX = (1 << 32) - 1
+
+# Hit indices are uint32 and 0xFFFFFFFF is the empty slot (giant.FILL): an
+# epoch's probe space, 3*T*N + T, must stay below it.
+PROBE_SPACE_LIMIT = (1 << 32) - 1
 
 # Drained epochs over which solve pools the hits of a rescan table before
 # one batched verification (the default of SolverConfig.verify_defer_epochs).
@@ -82,6 +92,13 @@ class SolverConfig:
     def __post_init__(self):
         if self.htsz is None:
             self.htsz = tbl.pick_htsz(self.w, self.window)
+        space = (3 * self.n_offsets + 1) * self.jobs_per_epoch
+        if space >= PROBE_SPACE_LIMIT:
+            raise ValueError(
+                f"an epoch of {self.jobs_per_epoch} jobs x {self.n_offsets} "
+                f"offsets probes {space} keys; its hit indices are uint32, "
+                f"with 0xFFFFFFFF marking an empty slot, so the probe space "
+                f"3*T*N + T must stay below {PROBE_SPACE_LIMIT}")
 
     @property
     def stride(self) -> int:
@@ -142,18 +159,28 @@ class SolveResult:
 
 
 def check_table_fits(table_bytes: int, mem_bytes: Optional[int] = None,
-                     device=None) -> None:
+                     device=None, n_shards: int = 1) -> None:
     """Refuse a table (the dense matrix and the planes kept beside it)
-    beyond the device's memory less MEMORY_RESERVE (total memory from
-    torch.cuda.mem_get_info)."""
+    whose slice on each of n_shards cards exceeds a card's memory less
+    MEMORY_RESERVE (total memory from torch.cuda.mem_get_info), the one
+    reserve that utils/tuner sizes against too."""
     if mem_bytes is None:
         mem_bytes = torch.cuda.mem_get_info(resolve_device(device))[1]
     budget = mem_bytes - MEMORY_RESERVE
-    if table_bytes > budget:
+    per_card = -(-table_bytes // max(1, n_shards))
+    if per_card > budget:
+        hint = (
+            "use --shard-table over several cards to split the table "
+            "across them (parallel/sharded_table.py)"
+            if n_shards == 1
+            else f"this mesh's {n_shards} cards still hold "
+            f"{per_card / 2**30:.1f} GiB each; use more cards"
+        )
         raise ValueError(
             f"dense table ({table_bytes / 2**30:.1f} GiB) exceeds the "
-            f"{budget / 2**30:.1f} GiB budget ({mem_bytes / 2**30:.0f} GiB "
-            f"device memory - {MEMORY_RESERVE / 2**30:.0f} GiB scan reserve)"
+            f"{budget / 2**30:.1f} GiB per-card budget "
+            f"({mem_bytes / 2**30:.0f} GiB device memory - "
+            f"{MEMORY_RESERVE / 2**30:.0f} GiB scan reserve); " + hint
         )
 
 
@@ -165,9 +192,20 @@ def table_bytes_per_slot(cfg: SolverConfig) -> int:
     return 8 if cfg.positions == "mirror" else 6
 
 
+def check_w(w: int) -> None:
+    """Refuse w >= 2^32 (W_MAX): baby positions are uint32."""
+    if w > W_MAX:
+        raise ValueError(f"w={w}: baby positions are uint32, so w must "
+                         f"stay below 2^32 (a mirror position of 2^32 would "
+                         f"be 0, the empty mark)")
+
+
 def build_table(cfg: SolverConfig, device=None) -> tbl.BabyTable:
     """The on-device table build for a config: one sort pack below
-    tbl.STREAMED_W, the streamed build (cfg.positions) from there on."""
+    tbl.STREAMED_W, the streamed build (cfg.positions) from there on
+    (parallel/sharded_table.build_sharded_table splits the streamed table
+    over the ranks of a mesh). Refuses w >= 2^32."""
+    check_w(cfg.w)
     dev = resolve_device(device)
     if dev.type == "cuda":
         check_table_fits(
@@ -279,27 +317,26 @@ class Solver:
         """Read one queued epoch's results back and DECODE any hits (no
         verification). Returns (hit records, giant_steps); raises
         HitOverflow when the device buffer was too small."""
-        cfg = self.cfg
         _, first_job, idxs, cnt, gs = rec
         cnt = int(cnt)
         if cnt > idxs.shape[-1]:
             raise HitOverflow(cnt)
         batch = []
         if cnt:
-            ctx = checker.HitContext(
-                q=pub, pk=pk, s=cfg.stride, n=cfg.n_offsets,
-                job_base=first_job,
-            )
-            recs = idxs.cpu().numpy()
-            recs = recs[recs != giant.FILL]
-            batch = [
-                (ctx,) + giant.decode_flat_phased(
-                    int(flat), cfg.jobs_per_epoch, cfg.n_offsets,
-                    self._phases,
-                )
-                for flat in recs
-            ]
+            batch = self._records(pub, pk, first_job, idxs.cpu().numpy())
         return batch, gs
+
+    def _records(self, pub, pk: int, job_base: int, idxs: np.ndarray):
+        """Decode a hit buffer's int32 bits, job t=0 being job_base, into
+        (ctx, code, t, j) records."""
+        cfg = self.cfg
+        ctx = checker.HitContext(q=pub, pk=pk, s=cfg.stride,
+                                 n=cfg.n_offsets, job_base=job_base)
+        return [
+            (ctx,) + giant.decode_flat_phased(
+                int(flat), cfg.jobs_per_epoch, cfg.n_offsets, self._phases)
+            for flat in giant.hit_indices(idxs)
+        ]
 
     def _verify(self, pending, pk: int, pke: int):
         """Batched exact verification of hit records. Returns (key or

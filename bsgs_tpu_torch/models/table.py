@@ -19,6 +19,8 @@ kernel tile by tile; only their 64-bit X prefixes are kept.
   chunk's transients. No CSR arrays: positions come from a slot-aligned
   position plane (``mirror``) or from a 2-byte hint per slot and a
   regeneration of 1/256 of the baby stream per verified hit (``rescan``).
+  ``build_shard_rows`` builds any bucket range of that table on its own
+  (``parallel/sharded_table.py`` splits a table over the ranks with it).
 
 u32 arrays are int32 tensors holding the same bits (``DENSE_FILL`` is -1);
 the uint16 hint plane is an int16 tensor holding the same bits.
@@ -64,7 +66,14 @@ class BabyTable:
       dense slot (0 = empty), on the table's device;
     - streamed build, ``rescan``: ``pos_lo``, the 16-bit hint of every
       dense slot (low byte: position & 0xFF; high byte: the 8 prefix bits
-      below the stored disc), and ``lookup_fn`` (make_strided_lookup)."""
+      below the stored disc), and ``lookup_fn`` (make_strided_lookup);
+    - sharded build: as ``rescan``, but ``dense`` and ``pos_lo`` hold only
+      this rank's rows [shard * bps, (shard + 1) * bps) of the 2^htsz,
+      bps = 2^htsz / n_table_shards; ``offsets`` stay global, and
+      ``lookup_fn`` pulls a row from the rank that owns it.
+
+    Positions are uint32: the planes hold their bits in int32 tensors and
+    are read back as uint32."""
 
     w: int
     htsz: int
@@ -77,6 +86,8 @@ class BabyTable:
     pos_dense: Optional[torch.Tensor] = None  # (2^htsz, window) int32
     lookup_fn: Optional[object] = None
     pos_lo: Optional[torch.Tensor] = None  # (2^htsz, window) int16 bits
+    n_table_shards: int = 1
+    shard: Optional[int] = None  # this rank's shard of a sharded build
 
     def lookup_positions(self, x_int: int) -> list[int]:
         """All baby indices whose X prefix matches that of x_int: the full
@@ -90,17 +101,17 @@ class BabyTable:
             p = np.uint64(pre)
             lo = int(np.searchsorted(self.sorted_pre, p, side="left"))
             hi = int(np.searchsorted(self.sorted_pre, p, side="right"))
-            return [int(v) for v in self.pos_sorted[lo:hi].tolist()]
+            return [int(v) for v in _u32_host(self.pos_sorted[lo:hi])]
         bucket = pre >> (64 - self.htsz)
         disc = np.uint32((pre >> (32 - self.htsz)) & 0xFFFFFFFF)
         if self.pos_dense is not None:
             # streamed mirror build: two row pulls, slot-aligned
-            d = self.dense[bucket].cpu().numpy().view(np.uint32)
-            p = self.pos_dense[bucket].cpu().numpy()
+            d = _u32_host(self.dense[bucket])
+            p = _u32_host(self.pos_dense[bucket])
             return [int(v) for v, dd in zip(p, d) if dd == disc and v != 0]
-        lo, hi = (int(v) for v in self.offsets[bucket : bucket + 2].tolist())
-        d = self.disc_sorted[lo:hi].cpu().numpy().view(np.uint32)
-        p = self.pos_sorted[lo:hi].cpu().numpy()
+        lo, hi = (int(v) for v in _u32_host(self.offsets[bucket:bucket + 2]))
+        d = _u32_host(self.disc_sorted[lo:hi])
+        p = _u32_host(self.pos_sorted[lo:hi])
         return [int(v) for v, m in zip(p, d == disc) if m]
 
     def lookup_positions_batch(self, x_ints) -> dict:
@@ -115,6 +126,11 @@ class BabyTable:
         if batch is not None:
             return batch(pres)
         return {p: self.lookup_positions(p) for p in pres}
+
+
+def _u32_host(t: torch.Tensor) -> np.ndarray:
+    """An int32 tensor's bits as a host uint32 array."""
+    return t.cpu().numpy().view(np.uint32)
 
 
 @dataclasses.dataclass
@@ -353,32 +369,40 @@ def _u16_bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_scatter(hi, lo, flat_dense, counts, flat_hint, flat_pos,
-                   base: int, *, htsz: int, window: int) -> None:
-    """Insert one chunk of prefixes (baby positions base+1 .. base+m) into
-    the table IN PLACE: nothing the size of the table is copied.
+                   base: int, row0: int, *, htsz: int, window: int) -> None:
+    """Insert the entries of one chunk of prefixes (baby positions
+    base+1 .. base+m) whose bucket lies in rows [row0, row0 + rows) of the
+    table, rows = counts.shape[0] - 1, IN PLACE: nothing the size of the
+    table is copied.
 
     rank in bucket = the bucket's running fill (counts) + the entry's rank
-    within the chunk (stable sort by bucket, then index minus segment
-    start), so entries of one bucket keep baby order across chunks, as
-    bsgs_tpu's stable lax.sort gives. ``flat_dense`` (int32), ``flat_hint``
-    (int16 or None) and ``flat_pos`` (int32 or None) are flat
-    (2^htsz * window + 1,) buffers whose last slot is a dump: entries past
-    the window land there, and build_baby_table_streamed then refuses the
-    table because counts.max() exceeds the window. Hint: low byte =
-    position & 0xFF, high byte = the _disc_lo_shift bits. No host wait."""
+    within the chunk, so entries of one bucket keep baby order across
+    chunks, as bsgs_tpu's stable lax.sort gives. Entries of other rows
+    take the sort key ``rows``, so the stable sort puts them after the own
+    ones and keeps each own bucket's entries in stream order; an entry's
+    rank is its index less the first index of its key (a sorted search).
+    The whole chunk is sorted rather than filtered first, because a filter
+    (nonzero) would make the host wait for every chunk. The last count
+    tallies the foreign entries.
+
+    ``flat_dense`` (int32), ``flat_hint`` (int16 or None) and ``flat_pos``
+    (int32 or None) are flat (rows * window + 1,) buffers whose last slot
+    is a dump: foreign entries and entries past the window land there, and
+    the build then refuses the table because a count exceeds the window
+    (offsets_from_counts). Hint: low byte = position & 0xFF, high byte =
+    the _disc_lo_shift bits. No host wait."""
     m = hi.shape[0]
-    nb = 1 << htsz
+    rows = counts.shape[0] - 1
     lo_v = PL.u32_value(lo)
     bucket, disc = bucket_disc(PL.u32_value(hi), lo_v, htsz)
-    sb, perm = torch.sort(bucket, stable=True)
+    local = bucket - row0
+    key = torch.where((local >= 0) & (local < rows), local,
+                      torch.full_like(local, rows))
+    sk, perm = torch.sort(key, stable=True)
     idx = torch.arange(m, device=hi.device)
-    is_start = torch.ones_like(sb, dtype=torch.bool)
-    is_start[1:] = sb[1:] != sb[:-1]
-    seg_start = torch.cummax(
-        torch.where(is_start, idx, torch.zeros_like(idx)), 0).values
-    rank = idx - seg_start + counts[sb]
-    slot = torch.where(rank < window, sb * window + rank,
-                       torch.full_like(rank, nb * window))
+    rank = idx - torch.searchsorted(sk, sk) + counts[sk]
+    slot = torch.where((sk < rows) & (rank < window), sk * window + rank,
+                       torch.full_like(rank, rows * window))
     pos = perm + (base + 1)
     flat_dense[slot] = PL.u32_bits(disc[perm])
     if flat_hint is not None:
@@ -387,7 +411,7 @@ def _chunk_scatter(hi, lo, flat_dense, counts, flat_hint, flat_pos,
         flat_hint[slot] = _u16_bits((pos & 0xFF) | (dlo << 8))
     if flat_pos is not None:
         flat_pos[slot] = PL.u32_bits(pos)
-    counts.index_add_(0, sb, torch.ones_like(sb, dtype=counts.dtype))
+    counts.index_add_(0, sk, torch.ones_like(sk, dtype=counts.dtype))
 
 
 def _i32(v: int) -> int:
@@ -403,14 +427,16 @@ def _match(hi, lo, pre64: int) -> list[int]:
 
 
 def make_strided_lookup(w: int, dense, pos_lo, htsz: int,
-                        tile: int = 1 << 20):
+                        tile: int = 1 << 20, rows=None):
     """Position lookup through the slot-aligned 16-bit hint ``pos_lo`` (low
     byte = position & 0xFF, high byte = 8 prefix bits below the stored
     disc), on the device that holds ``dense``:
 
     1. the bucket's dense row and hint row are pulled to the host (two
-       waits); a slot whose disc matches but whose extra bits do not is a
-       probe false positive and is rejected with no regeneration;
+       waits; ``rows(bucket)`` -> (uint32 row, uint16 hint row) pulls them
+       instead where another rank owns the row); a slot whose disc matches
+       but whose extra bits do not is a probe false positive and is
+       rejected with no regeneration;
     2. a surviving slot narrows the baby index to r = r_lo (mod 256), and
        only that subsequence, w/256 points, is regenerated and matched on
        the full 64-bit prefix.
@@ -437,13 +463,16 @@ def make_strided_lookup(w: int, dense, pos_lo, htsz: int,
             done += hi.shape[0]
         return [r for r in out if 1 <= r <= w]
 
-    def lookup(pre64: int) -> list:
+    def resolve(pre64: int) -> list:
         pre64 = int(pre64) & ((1 << 64) - 1)
         stats["lookups"] += 1
         bucket = pre64 >> (64 - htsz)
         disc = np.uint32((pre64 >> (32 - htsz)) & 0xFFFFFFFF)
-        row = dense[bucket].cpu().numpy().view(np.uint32)
-        plo = pos_lo[bucket].cpu().numpy().view(np.uint16)
+        if rows is None:
+            row = _u32_host(dense[bucket])
+            plo = pos_lo[bucket].cpu().numpy().view(np.uint16)
+        else:
+            row, plo = rows(bucket)
         want_dlo = (pre64 >> sh) & mk
         r_los = set()
         for p, dd in zip(plo, row):
@@ -458,8 +487,14 @@ def make_strided_lookup(w: int, dense, pos_lo, htsz: int,
             res.extend(_residue_scan(pre64, r_lo))
         return sorted(set(res))
 
+    # lookup.batch calls resolve, not lookup: a function whose attribute
+    # refers back to it would be a reference cycle, which keeps the table's
+    # device memory until the garbage collector runs
+    def lookup(pre64: int) -> list:
+        return resolve(pre64)
+
     def lookup_many(pres) -> dict:
-        return {p: lookup(p) for p in pres}
+        return {p: resolve(p) for p in pres}
 
     lookup.batch = lookup_many
     lookup.stats = stats
@@ -500,15 +535,79 @@ def make_rescan_lookup(w: int, tile: int = 1 << 20, device=None):
     return lookup
 
 
+def build_shard_rows(w: int, htsz: int, n_shards: int = 1, shard: int = 0,
+                     window: int = DEVICE_WINDOW, tile: int = 1 << 20,
+                     chunk: int = 1 << 21, mirror: bool = False,
+                     device=None):
+    """Rows [shard * bps, (shard + 1) * bps) of the streamed table of
+    1G..wG, bps = 2^htsz / n_shards (every row with the defaults), built
+    on ``device`` alone: prefixes are generated tile by tile
+    (_prefix_tiles_planar), gathered into chunks of at least ``chunk`` and
+    the entries of those rows scattered in place (_chunk_scatter), so peak
+    device memory is the rows plus one chunk of transients. A shard needs
+    no other shard: each generates the whole stream.
+
+    Returns (dense (bps, window) int32 bits, plane, counts (bps,) int64):
+    plane is the int32 position plane with ``mirror``, else the int16 hint
+    plane. The counts may exceed the window (offsets_from_counts refuses
+    them)."""
+    dev = resolve_device(device)
+    nb = 1 << htsz
+    if nb % n_shards or not 0 <= shard < n_shards:
+        raise ValueError(f"shard {shard} of {n_shards}: 2^{htsz} buckets "
+                         f"do not split evenly")
+    bps = nb // n_shards
+    slots = bps * window
+    flat_dense = torch.full((slots + 1,), DENSE_FILL, dtype=torch.int32,
+                            device=dev)
+    flat_plane = torch.zeros((slots + 1,), device=dev,
+                             dtype=torch.int32 if mirror else torch.int16)
+    counts = torch.zeros((bps + 1,), dtype=torch.int64, device=dev)
+    buf, have, base = [], 0, 0
+
+    def flush():
+        nonlocal buf, have, base
+        hi = torch.cat([b[0] for b in buf])
+        lo = torch.cat([b[1] for b in buf])
+        _chunk_scatter(hi, lo, flat_dense, counts,
+                       None if mirror else flat_plane,
+                       flat_plane if mirror else None, base, shard * bps,
+                       htsz=htsz, window=window)
+        base += have
+        buf, have = [], 0
+
+    for hi, lo in _prefix_tiles_planar(w, tile, dev):
+        buf.append((hi, lo))
+        have += hi.shape[0]
+        if have >= chunk:
+            flush()
+    if have:
+        flush()
+    return (flat_dense[:-1].view(bps, window),
+            flat_plane[:-1].view(bps, window), counts[:-1])
+
+
+def offsets_from_counts(counts, window: int, htsz: int) -> torch.Tensor:
+    """The CSR offsets ((2^htsz + 1,) uint32 bits) of a table's int64
+    bucket counts; raises when a bucket overflowed the window."""
+    maxb = int(counts.max())
+    if maxb > window:
+        raise ValueError(
+            f"bucket overflow: max bucket {maxb} > window {window}; "
+            f"raise htsz (now {htsz}) or window"
+        )
+    return PL.u32_bits(torch.cat([counts.new_zeros(1),
+                                  torch.cumsum(counts, 0)]))
+
+
 def build_baby_table_streamed(w: int, htsz: Optional[int] = None,
                               window: int = DEVICE_WINDOW,
                               tile: int = 1 << 20, chunk: int = 1 << 21,
                               positions: str = "auto",
                               device=None) -> BabyTable:
-    """Big-w device build: prefixes are generated tile by tile, gathered
-    into chunks of at least ``chunk`` and scattered into the dense matrix
-    in place (_chunk_scatter), so peak device memory is the table plus one
-    chunk of transients.
+    """Big-w device build: every row of the table, streamed
+    (build_shard_rows), so peak device memory is the table plus one chunk
+    of transients.
 
     ``positions`` says how the checker later maps a matched prefix to baby
     indices:
@@ -529,53 +628,17 @@ def build_baby_table_streamed(w: int, htsz: Optional[int] = None,
         raise ValueError(f"positions must be mirror, rescan or auto "
                          f"(got {positions!r})")
     mirror = positions == "mirror"
-    nb = 1 << htsz
-    slots = nb * window
-    flat_dense = torch.full((slots + 1,), DENSE_FILL, dtype=torch.int32,
-                            device=dev)
-    counts = torch.zeros((nb,), dtype=torch.int32, device=dev)
-    flat_hint = None if mirror else torch.zeros(
-        (slots + 1,), dtype=torch.int16, device=dev)
-    flat_pos = torch.zeros((slots + 1,), dtype=torch.int32,
-                           device=dev) if mirror else None
-
-    buf, have, base = [], 0, 0
-
-    def flush():
-        nonlocal buf, have, base
-        hi = torch.cat([b[0] for b in buf])
-        lo = torch.cat([b[1] for b in buf])
-        _chunk_scatter(hi, lo, flat_dense, counts, flat_hint, flat_pos,
-                       base, htsz=htsz, window=window)
-        base += have
-        buf, have = [], 0
-
-    for hi, lo in _prefix_tiles_planar(w, tile, dev):
-        buf.append((hi, lo))
-        have += hi.shape[0]
-        if have >= chunk:
-            flush()
-    if have:
-        flush()
-
-    maxb = int(counts.max())
-    if maxb > window:
-        raise ValueError(
-            f"bucket overflow: max bucket {maxb} > window {window}; "
-            f"raise htsz (now {htsz}) or window"
-        )
-    offsets = PL.u32_bits(torch.cat(
-        [counts.new_zeros(1, dtype=torch.int64),
-         torch.cumsum(counts, 0, dtype=torch.int64)]))
-    dense = flat_dense[:-1].view(nb, window)
-    pos_lo = None if mirror else flat_hint[:-1].view(nb, window)
+    dense, plane, counts = build_shard_rows(
+        w, htsz, window=window, tile=tile, chunk=chunk, mirror=mirror,
+        device=dev)
+    offsets = offsets_from_counts(counts, window, htsz)
     return BabyTable(
         w=w, htsz=htsz, window=window, offsets=offsets, disc_sorted=None,
         pos_sorted=None, dense=dense,
-        pos_dense=flat_pos[:-1].view(nb, window) if mirror else None,
-        pos_lo=pos_lo,
+        pos_dense=plane if mirror else None,
+        pos_lo=None if mirror else plane,
         lookup_fn=None if mirror
-        else make_strided_lookup(w, dense, pos_lo, htsz, tile),
+        else make_strided_lookup(w, dense, plane, htsz, tile),
     )
 
 

@@ -42,13 +42,13 @@ EPOCH_BYTES_PER_PAIR = 75
 # scatter's indices (73.2 measured at w=2^26).
 BUILD_BYTES_PER_KEY = 73
 # Device bytes per bucket that the streamed build holds at its peak beyond
-# the table: the int64 running counts that become the CSR offsets, which
-# outweigh a chunk's transients (25.5 measured at 2^24 buckets, 24.1 at
-# 2^26).
-STREAMED_BUILD_BYTES_PER_BUCKET = 25.5
+# the table: the int64 running counts, their prefix sum and the CSR
+# offsets made from them, which outweigh a chunk's transients (29.5
+# measured at 2^24 buckets on an H100).
+STREAMED_BUILD_BYTES_PER_BUCKET = 29.5
 
-# CSR offsets and baby positions are 32-bit: w = 2^32 would wrap them.
-W_MAX = (1 << 32) - 1
+# The largest w (solver.build_table refuses more).
+W_MAX = smod.W_MAX
 
 
 def dense_layout(w: int, window: int = tbl.DEVICE_WINDOW):

@@ -39,7 +39,10 @@ nonzero:
    another --w or pubkey), --gen-only (artifact saved, reloaded, checked),
    the progress line's rate, a narrow chain layout (--n-offsets 1000);
    check which chain layouts the epoch kernels take, and time T=128 jobs
-   an epoch against T=16;
+   an epoch against T=16; then join a process group of one rank on NCCL
+   and drive parallel.striped.MeshSolver over a replicated w=2^26 table
+   (its own table, a planted key of super-epoch 1), and time its 8-epoch
+   scans beside the plain Solver's in turns, with its host waits;
 7. free that table and drive the streamed path: hold the six kernels
    against their plain versions again at this path's shapes (24 bucket
    bits, 2^20-lane tiles), build the w=2^30 table (htsz=24, rescan
@@ -49,16 +52,27 @@ nonzero:
    kernel against its plain version on the 8 GiB table, and time 32-epoch
    scans (giant-steps/s, hits checked, residue scans, host waits), without
    and with a planted slot that survives the hint to a residue scan;
+   build the same table over the group of one
+   (parallel.sharded_table.build_sharded_table, equal to the single-card
+   table), find a planted key through MeshSolver with the table sharded,
+   its lookups through the owner's broadcast rows and a slot that survives
+   the hint, and time 8-epoch scans through the all_gather route beside
+   the plain Solver's; build the table's 4 shards in
+   turn (each equal to its rows of the single-card table) and route one
+   phase's three probe streams to them by both routes' tensor functions
+   (equal to the whole table's probe); compact hits past index 2^31;
    then the command line at w=2^30 (a planted key through deferred
-   verification, no checkpoint past a pooled epoch), --tune on the card
+   verification, no checkpoint past a pooled epoch; and --devices 1
+   --shard-table, a group of one of its own), --tune on the card
    with the tuner's estimates held against the bytes phases 3, 6 and 7
    measured, and the suggested geometry run with a planted key;
 8. profile both table builds (device time by kernel, the builds' parts
    timed one by one), one tile advance at each path's tile (exactly four
    device launches) and one residue scan;
 9. print the kernels' JSON line (every kernel launched on each path: the
-   two solves and the command line's two), the card's name and power
-   limit, and the result line.
+   two solves, the command line's two, the two MeshSolver paths and the
+   command line's --shard-table path), the card's name and power limit,
+   and the result line.
 
 Each path's launches must show one forward and one backward Montgomery
 pass per add-const pass: a tile advance or fill pass folds once.
@@ -71,6 +85,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import os
 import random
@@ -1501,6 +1516,7 @@ def cli_tune(mem: dict) -> dict:
     kpe = S.SolverConfig(w=plan.w).keys_per_epoch
     pk = 1 << 62
     key = pk + kpe + random.Random(SEED + 62).randrange(kpe)
+    gc.collect()  # no garbage of earlier phases may be freed in the run
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1533,6 +1549,348 @@ def cli_tune(mem: dict) -> dict:
         f"{mem[1 << 26]['scan_transients'] / (16 << 18):.2f} (w=2^26), "
         f"{mem[1 << 30]['scan_transients'] / (16 << 18):.2f} (w=2^30)")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Several cards (bsgs_tpu_torch.parallel): the collective path in a process
+# group of one rank on NCCL, and the 4-way partition of a table in one
+# process
+
+
+def mesh_of_one():
+    """A process group of one rank on NCCL at a free localhost port, and
+    its Mesh on this card."""
+    from bsgs_tpu_torch.parallel import mesh as M
+
+    t0 = time.time()
+    M.init_distributed(M.free_address(), 1, 0, backend="nccl")
+    mesh = M.make_mesh(1)
+    log(f"mesh: a group of one rank on {mesh.backend}, {mesh.device}, in "
+        f"{time.time() - t0:.2f} s")
+    return mesh
+
+
+def scans_in_turns(solvers: dict, order, pub, pk: int, epochs: int) -> dict:
+    """8-epoch (or so) scans of each solver, taken in the given order
+    (A, B, B, A), so that two are compared within one run: rates by name."""
+    rates = {name: [] for name in solvers}
+    for name in order:
+        r, _ = timed_scans(solvers[name], pub, pk, epochs=epochs, repeats=1)
+        rates[name] += r
+    return rates
+
+
+def mesh_replicated(mesh, solver, path_launches: dict) -> dict:
+    """MeshSolver over a replicated w=2^26 table in the group of one: its
+    own table and offsets, a planted key of super-epoch 1, counted as the
+    "mesh w=2^26" path; then its 8-epoch scans beside the plain Solver's
+    (same card, same table geometry, in turns) and its host waits."""
+    import torch
+
+    from bsgs_tpu_torch.models import solver as S
+    from bsgs_tpu_torch.ops import _cuda
+    from bsgs_tpu_torch.parallel import striped
+    from bsgs_tpu_torch.utils import ecpy
+
+    cfg = S.SolverConfig(w=1 << 26)
+    rng = random.Random(SEED + 126)
+    _cuda.reset_launches()
+    t0 = time.time()
+    base = S.Solver(cfg, baby=S.build_table(cfg, device=mesh.device),
+                    device=mesh.device)
+    ms = striped.MeshSolver(base, mesh)
+    pk = 1 << 41
+    key = pk + cfg.keys_per_epoch + rng.randrange(cfg.keys_per_epoch)
+    res = ms.solve(ecpy.mul(key), pk, pk + 3 * cfg.keys_per_epoch - 1)
+    torch.cuda.synchronize()
+    if res.key != key:
+        raise AssertionError(f"mesh w=2^26: planted key {key:#x} not found: "
+                             f"{res}")
+    log(f"mesh w=2^26 replicated: table, offsets and planted key {key:#x} "
+        f"of super-epoch {res.epochs - 1} in {time.time() - t0:.2f} s")
+    read_launches("mesh w=2^26", path_launches)
+    pub = ecpy.mul((1 << 200) + 12345)
+    for s in (solver, ms):
+        s.solve(pub, pk, pk + cfg.keys_per_epoch - 1, max_epochs=1)
+    rates = scans_in_turns({"plain": solver, "mesh": ms},
+                           ("plain", "mesh", "mesh", "plain", "plain",
+                            "mesh"), pub, pk, 8)
+    log(f"mesh w=2^26: 8-epoch scans, giant-steps/s, plain Solver "
+        f"{rates['plain']}, MeshSolver (group of one) {rates['mesh']}")
+    profile_scan(ms, pub, pk, epochs=4)
+    costs = collective_costs(ms, pub, pk, 4)
+    waits = count_syncs(ms, pub, pk, epochs=4, label=" (mesh w=2^26)")
+    del base, ms
+    torch.cuda.empty_cache()
+    return dict(rates=rates, collectives=costs,
+                host_waits_per_epoch=waits / 4)
+
+
+def mesh_sharded(mesh, single, path_launches: dict) -> dict:
+    """The w=2^30 table built split over the group of one
+    (sharded_table.build_sharded_table: rescan positions, lookups through
+    the owner's broadcast rows), equal to the single-card streamed table; a
+    planted key of epoch 1 found through deferred verification with a slot
+    that survives the hint planted in epoch 0, counted as the "mesh w=2^30
+    sharded" path; then 8-epoch scans through the all_gather route beside
+    the plain Solver's on the single-card table, in turns, and a profile
+    of its epoch."""
+    import torch
+
+    from bsgs_tpu_torch.models import solver as S, table as T
+    from bsgs_tpu_torch.ops import _cuda
+    from bsgs_tpu_torch.parallel import sharded_table as ST, striped
+    from bsgs_tpu_torch.utils import ecpy
+
+    cfg = S.SolverConfig(w=1 << 30)
+    rng = random.Random(SEED + 130)
+    _cuda.reset_launches()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    baby = ST.build_sharded_table(cfg, mesh)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    if (baby.shard, baby.n_table_shards) != (0, 1) or not (
+            torch.equal(baby.dense, single.baby.dense)
+            and torch.equal(baby.pos_lo, single.baby.pos_lo)
+            and torch.equal(baby.offsets, single.baby.offsets)):
+        raise AssertionError("the table built over the mesh differs from the "
+                             "single-card streamed table")
+    stats = baby.lookup_fn.stats
+    for r in (1, 256, cfg.w, rng.randrange(1, cfg.w)):
+        if baby.lookup_positions(ecpy.mul(r)[0]) != [r]:
+            raise AssertionError(f"mesh lookup of baby {r}")
+    base = S.Solver(cfg, baby=baby, device=mesh.device)
+    ms = striped.MeshSolver(base, mesh, shard_baby_table=True)
+    pk = 1 << 59
+    key = pk + cfg.keys_per_epoch + rng.randrange(cfg.keys_per_epoch)
+    q0 = ecpy.sub(ecpy.mul(key), ecpy.mul(pk))
+    pre_fp, (row, col) = plant_surviving_slot(baby, cfg, q0, 12345)
+    scans_before = stats["residue_scans"]
+    t0 = time.time()
+    res = ms.solve(ecpy.mul(key), pk, pk + 3 * cfg.keys_per_epoch - 1)
+    torch.cuda.synchronize()
+    took = time.time() - t0
+    scans = stats["residue_scans"] - scans_before
+    if res.key != key or res.epochs < 3 or scans < 1 or res.hits_checked < 2:
+        raise AssertionError(f"mesh w=2^30: planted key {key:#x}: {res}, "
+                             f"{scans} residue scans")
+    baby.dense[row, col] = T.DENSE_FILL
+    baby.pos_lo[row, col] = 0
+    log(f"mesh w=2^30 sharded: built over the group in {t_build:.2f} s "
+        f"(peak {peak} B above what was allocated before), equal to the "
+        f"single-card table; planted key {key:#x} of epoch 1 found after "
+        f"{res.epochs} drained epochs with the slot planted in epoch 0 "
+        f"({res.hits_checked} hits checked, {scans} residue scans through "
+        f"the broadcast rows, {took:.2f} s)")
+    read_launches("mesh w=2^30 sharded", path_launches)
+    pub = ecpy.mul((1 << 200) + 12345)
+    solvers = {"plain": single, "all_gather": ms}
+    for s in solvers.values():
+        s.solve(pub, pk, pk + cfg.keys_per_epoch - 1, max_epochs=1)
+    rates = scans_in_turns(solvers, ("plain", "all_gather", "all_gather",
+                                     "plain", "plain", "all_gather"),
+                           pub, pk, 8)
+    log(f"mesh w=2^30: 8-epoch scans, giant-steps/s, plain Solver "
+        f"{rates['plain']}, sharded all_gather {rates['all_gather']}")
+    profile_scan(ms, pub, pk, epochs=4)
+    costs = collective_costs(ms, pub, pk, 4)
+    waits = count_syncs(ms, pub, pk, epochs=8, label=" (mesh w=2^30)")
+    del solvers, ms, base, baby
+    torch.cuda.empty_cache()
+    return dict(build_s=t_build, build_peak=peak, solve_s=took,
+                residue_scans=scans, rates=rates, collectives=costs,
+                host_waits_per_epoch=waits / 8)
+
+
+def collective_costs(ms, pub, pk: int, epochs: int) -> dict:
+    """Per epoch of a MeshSolver scan: the collectives it makes, by kind,
+    and the host time spent in each call and in the whole probe; and the
+    device allocations (cudaMalloc, which makes the host wait for the
+    device) the caching allocator made in the scan."""
+    import torch
+
+    mesh = ms.mesh
+    calls = collections.Counter()
+    host = collections.Counter()
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            host[name] += time.perf_counter() - t0
+            calls[name] += 1
+            return out
+        return call
+
+    kinds = ("all_gather", "all_reduce_max", "broadcast")
+    for kind in kinds:
+        setattr(mesh, kind, timed(kind, getattr(mesh, kind)))
+    probe = ms._probe
+    ms._probe = timed("probe", probe)
+    stats0 = torch.cuda.memory_stats()
+    try:
+        ms.solve(pub, pk, pk + epochs * ms.cfg.keys_per_epoch - 1,
+                 max_epochs=epochs)
+        torch.cuda.synchronize()
+    finally:
+        ms._probe = probe
+        for kind in kinds:
+            delattr(mesh, kind)
+    stats1 = torch.cuda.memory_stats()
+    out = dict(
+        calls_per_epoch={k: calls[k] / epochs for k in calls},
+        host_ms_per_epoch={k: 1e3 * host[k] / epochs for k in host},
+        device_allocs=stats1.get("num_device_alloc", 0)
+        - stats0.get("num_device_alloc", 0))
+    log(f"collectives: {json.dumps(out)}")
+    return out
+
+
+def phase_streams(solver, seed: int):
+    """The three probe streams of one epoch phase as (bucket, disc): its +
+    and - landings (members planted in the first) and the epoch's
+    centers."""
+    import torch
+
+    from bsgs_tpu_torch.models import table as T
+    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
+    from bsgs_tpu_torch.utils import ecpy
+
+    cfg = solver.cfg
+    per = cfg.jobs_per_epoch // solver._phases
+    cx, cy, _ = solver._centers_on_device(ecpy.mul((1 << 190) + seed), 0)
+    keys = EK.epoch_landing_keys(
+        cx[:per].T.contiguous(), cy[:per].T.contiguous(), solver.ox_pl,
+        solver.oy_pl, htsz=cfg.htsz, chunk_c=cfg.chunk_c,
+        lanes_w=cfg.lanes_w)
+    gen = torch.Generator(device=cx.device)
+    gen.manual_seed(seed)
+    plus = plant_members(keys[0].clone(), keys[1].clone(), solver.baby.dense,
+                         gen)
+    hi, lo = PL.x_prefix64(cx.T.long())
+    bc, dc = T.bucket_disc(hi[0], lo[0], cfg.htsz)
+    return [plus, (keys[2].clone(), keys[3].clone()),
+            (PL.u32_bits(bc), PL.u32_bits(dc))]
+
+
+def partition_w30(single, n: int = 4) -> dict:
+    """The w=2^30 table split 4 ways on this card, in one process: each
+    shard built in turn (table.build_shard_rows: the whole stream
+    generated, its rows scattered), equal bit for bit to those rows of
+    the single-card streamed table (dense, hint, counts), seconds and peak
+    each; then one phase's three probe streams, split over 4 simulated
+    ranks, through both routes' tensor functions with the exchanges made
+    by hand, equal bit for bit to probe_rows on the whole table."""
+    import torch
+
+    from bsgs_tpu_torch.models import table as T
+    from bsgs_tpu_torch.ops import planar as PL, probe_kernel as PK
+    from bsgs_tpu_torch.parallel import sharded_table as ST
+
+    cfg, whole = single.cfg, single.baby
+    bps = (1 << cfg.htsz) // n
+    counts = torch.diff(PL.u32_value(whole.offsets))
+    entries = counts.view(n, bps).sum(1).cpu().numpy()
+    specs, builds = [], []
+    for s in range(n):
+        rows = slice(s * bps, (s + 1) * bps)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        dense, hint, cnt = T.build_shard_rows(cfg.w, cfg.htsz, n, s,
+                                              window=cfg.window,
+                                              device=whole.dense.device)
+        torch.cuda.synchronize()
+        took = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        if not (torch.equal(dense, whole.dense[rows])
+                and torch.equal(hint, whole.pos_lo[rows])
+                and torch.equal(cnt, counts[rows])):
+            raise AssertionError(f"shard {s} of {n} differs from rows "
+                                 f"{rows} of the single-card table")
+        builds.append(dict(seconds=took, peak=peak,
+                           dense_bytes=dense.numel() * 4,
+                           hint_bytes=hint.numel() * 2))
+        del hint
+        specs.append(ST.ShardedTableSpec(cfg.htsz, cfg.window, n, s, dense,
+                                         entries))
+    log(f"partition: {n} shards of the w=2^30 table, each equal to its rows "
+        f"of the single-card table: {json.dumps(builds)}")
+    routes = []
+    for label, (bucket, disc) in zip(("+ landings", "- landings",
+                                      "centers"), phase_streams(single,
+                                                                SEED)):
+        want = PK.probe_rows(bucket, disc, whole.dense)
+        bs, ds = list(bucket.chunk(n)), list(disc.chunk(n))
+        rec = dict(stream=label, m=bucket.shape[0], found=int(want.sum()))
+        for route, fn in (("all_gather", ST.probe_all_gather_in_process),
+                          ("all_to_all", ST.probe_all_to_all_in_process)):
+            got = torch.cat(fn(bs, ds, specs))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{route} over {n} shards differs from "
+                                     f"the whole table's probe on the "
+                                     f"{label} stream")
+            rec[f"{route}_ms"] = cuda_ms(lambda: fn(bs, ds, specs), 5,
+                                         queued=False)
+        rec["whole_ms"] = cuda_ms(
+            lambda: PK.probe_rows(bucket, disc, whole.dense), 5,
+            queued=False)
+        routes.append(rec)
+    log(f"partition: both routes over {n} shards equal the whole table's "
+        f"probe on one phase's three streams (ms for all {n} ranks' shares "
+        f"in one process, host time included): {json.dumps(routes)}")
+    del specs
+    torch.cuda.empty_cache()
+    return dict(builds=builds, routes=routes)
+
+
+def check_hits_above_2_31(device) -> None:
+    """The hit compaction at indices past 2^31 (a probe space of
+    2^31 + 64): its int32 bits read back as the uint32 indices."""
+    import torch
+
+    from bsgs_tpu_torch.models import giant as G
+
+    m = torch.zeros((1 << 31) + 64, dtype=torch.bool, device=device)
+    m[[5, (1 << 31) + 5]] = True
+    idxs, cnt = G._masks_to_hits([m[:1 << 30], m[1 << 30:]], 4)
+    got = G.hit_indices(idxs.cpu().numpy()).tolist()
+    if int(cnt[0]) != 2 or got != [5, (1 << 31) + 5]:
+        raise AssertionError(f"hits past 2^31: {got}, count {int(cnt[0])}")
+    del m
+    torch.cuda.empty_cache()
+    log("hits past 2^31: the compaction's int32 bits read back as "
+        f"{got}")
+
+
+def cli_mesh(path_launches: dict) -> dict:
+    """python -m bsgs_tpu_torch.cli --devices 1 --shard-table --w 30 in the
+    current directory: the command line starts and closes its own group of
+    one rank, splits the single-card table into one shard and probes it
+    through the collective route; a planted key of epoch 1. Counted as the
+    "cli --shard-table w=2^30" path."""
+    from bsgs_tpu_torch.models import solver as S
+    from bsgs_tpu_torch.ops import _cuda
+    from bsgs_tpu_torch.utils import codecs, ecpy
+
+    rng = random.Random(SEED + 31)
+    kpe = S.SolverConfig(w=1 << 30).keys_per_epoch
+    pk = 1 << 62
+    key = pk + kpe + rng.randrange(kpe)
+    _cuda.reset_launches()
+    rc, text, err, took = run_cli(
+        ["--pub", codecs.format_pubkey(ecpy.mul(key)), "--w", 30, "--pk",
+         f"{pk:x}", "--pke", f"{pk + 3 * kpe - 1:x}", "--devices", 1,
+         "--shard-table"], "--devices 1 --shard-table, w=2^30")
+    if rc != 0 or read_win() != [win_line(key)] or "(rank 0 of 1)" not in \
+            text:
+        raise AssertionError(f"cli --shard-table: {rc} {text[-400:]} "
+                             f"{err[-400:]}")
+    read_launches("cli --shard-table w=2^30", path_launches)
+    return dict(seconds=took)
 
 
 def check_layouts(device) -> dict:
@@ -1624,6 +1982,7 @@ def main() -> int:
     try:
         from bsgs_tpu_torch.models import solver as S, table as T
         from bsgs_tpu_torch.ops import _cuda
+        from bsgs_tpu_torch.parallel import mesh as pmesh
         from bsgs_tpu_torch.utils import checkpoint as ckpt, ecpy
     except ImportError as e:
         print(f"chip_smoke: the bsgs_tpu_torch package is missing ({e})",
@@ -1760,6 +2119,12 @@ def main() -> int:
     cli_out["jobs_128"] = cost_of_128_jobs(solver, pk)
     torch.cuda.synchronize()
 
+    # the parallel layer in a group of one rank on NCCL: MeshSolver over a
+    # replicated w=2^26 table, its scans beside the plain Solver's
+    mesh = mesh_of_one()
+    mesh_out = dict(w26=mesh_replicated(mesh, solver, path_launches))
+    torch.cuda.synchronize()
+
     # 7. the streamed path: w=2^30, rescan positions, deferred verification
     del solver, baby
     torch.cuda.empty_cache()
@@ -1884,13 +2249,26 @@ def main() -> int:
     baby.pos_lo[fp_row, fp_col] = 0
     torch.cuda.synchronize()
 
-    # the command line at w=2^30, and the tuner against what was measured
+    # the parallel layer at w=2^30: the table built over the group of one
+    # and scanned through the all_gather route, the 4-way partition in one
+    # process, and hit indices past 2^31
+    mesh_out["w30"] = mesh_sharded(mesh, solver, path_launches)
+    mesh_out["partition"] = partition_w30(solver)
+    check_hits_above_2_31(device)
+    pmesh.close()
+    log(f"mesh: {json.dumps(mesh_out)}")
+    torch.cuda.synchronize()
+
+    # the command line at w=2^30 (on one card, and through the mesh path
+    # with --devices 1 --shard-table), and the tuner against what was
+    # measured
     del solver, baby
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
             cli_out["w30"] = cli_w30(path_launches)
+            cli_out["mesh"] = cli_mesh(path_launches)
             cli_out["tune"] = cli_tune(mem)
         finally:
             os.chdir(here)

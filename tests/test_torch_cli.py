@@ -1,9 +1,9 @@
 """The port's command line end to end on the CPU (``main(argv,
 device="cpu")``, the kernels' plain versions) at tests/test_torch_solver.py's
 tiny geometry: planted keys to the win file, --infile, --resume and its
-refusals (the pubkey binding the JAX resume lacks), --gen-only, --tune,
-the flags that need several cards, any jobs per epoch, special hit codes;
-and the flag surface against the JAX CLI's. Formats are compared through
+refusals (the pubkey binding the JAX resume lacks, another card count),
+--gen-only, --tune, any jobs per epoch, special hit codes; and the flag
+surface against the JAX CLI's. Formats are compared through
 the two packages' codecs and checkpoint modules: no JAX solve runs here.
 Most runs take --jobs-per-epoch 2 and --pipeline 1 (one inversion an
 epoch, no epoch queued past a found key): a CPU epoch costs a plain
@@ -163,8 +163,27 @@ def test_tune_with_a_memory_size(run, monkeypatch):
 @pytest.mark.parametrize("flags", [["--devices", "2"], ["--shard-table"],
                                    ["--device-ids", "0,1"], ["-d", "1,2"]])
 def test_flags_for_several_cards_exit_2(run, flags):
-    rc, _, err = run("--pub", pub(5), "--pk", "1", "--pke", "ff", *flags)
-    assert rc == 2 and "multi-GPU" in err
+    """A scan checkpointed on one card is not resumed on several, nor with
+    the table sharded: the card count and the sharding are in the
+    fingerprint, as in the JAX CLI (bsgs_tpu/cli.py:193-197). The runs on
+    several ranks are tests/test_torch_distributed_cli.py."""
+    argv = ("--pub", pub(PK + 3), "--pk", f"{PK:x}", "--pke",
+            f"{PK + 100:x}", *QUICK)
+    assert run(*argv)[0] == 0
+    rc, _, err = run(*argv, *flags, "--resume", "currentwork.json")
+    assert rc == 2 and "cannot resume" in err and "fingerprint" in err
+
+
+@pytest.mark.parametrize("flags, says", [
+    (["-d", "0,0"], "repeat"), (["--device-ids", "1,2,1"], "repeat"),
+    (["--devices", "2", "--shard-table", "--positions", "mirror"],
+     "rescan positions only")])
+def test_cards_that_cannot_be_given_exit_2(run, flags, says):
+    """No card takes two ranks, and a table split over several cards holds
+    no position plane: refused before any rank starts."""
+    rc, _, err = run("--pub", pub(PK + 3), "--pk", f"{PK:x}", "--pke",
+                     f"{PK + 100:x}", *QUICK, *flags)
+    assert rc == 2 and says in err
 
 
 def test_chain_layout_refusal_exits_2(run):
