@@ -6,8 +6,9 @@ Counterpart of ``bsgs_tpu/cli.py`` with the same flags, so that a command
 line written for one package runs on the other (the reference binary's
 flags, README.md:2-16: -pb, -pk/-pke, -w, -htsz, -infile, -wl, -wt, -sf,
 -d). The baby table is built on the card (a rebuild beats loading a file
-of the same table), every epoch runs the port's kernels, and every hit is
-verified on the host.
+of the same table), every epoch runs the port's kernels (the fused epoch
+where a chain layout fits --n-offsets, else the unfused one, which takes
+any N), and every hit is verified on the host.
 
 Several cards (``--devices N``, or N ``--device-ids``) run one process a
 card, joined by torch.distributed (parallel/): launched plainly, the
@@ -237,9 +238,8 @@ def _plan(args, ids):
     try:
         cfg.chunk_c, cfg.lanes_w = smod.chain_layout(
             n_offsets, cfg.jobs_per_epoch // cfg.phases)
-    except ValueError as e:
-        print(f"--n-offsets: {e}", file=sys.stderr)
-        return 2
+    except ValueError:
+        cfg.fused = False  # no chain layout fits N: the unfused epoch
     # the JAX CLI's parameters, so that one geometry has one fingerprint
     fingerprint = ckpt.config_fingerprint(
         w=w, htsz=htsz, n_offsets=n_offsets, pk=pk, pke=pke,

@@ -1,11 +1,23 @@
 """Giant-step epoch: the device hot loop.
 
-Counterpart of the fused path of ``bsgs_tpu/models/giant.py``. An epoch of
-T jobs (centers M_t) against the N device-resident offsets O_j = j*S*G runs
-as the epoch kernels (ops/epoch_kernel.epoch_landing_keys), the table probe
-(ops/probe_kernel.probe_rows: nine launches per epoch at 4 phases, two
-landing streams per phase and the centers) and a hit compaction that never
-makes the host wait for the device.
+Counterpart of ``bsgs_tpu/models/giant.py``. An epoch of T jobs (centers
+M_t) against the N device-resident offsets O_j = j*S*G computes every
+landing x(M +- O_j), probes the table with their 64-bit prefixes and
+compacts the hits without making the host wait for the device. Three
+forms:
+
+- the fused epoch (``fused_epoch_probes``, ``run_epoch_fused``): the epoch
+  kernels (ops/epoch_kernel.epoch_landing_keys) emit (bucket, disc) keys,
+  and the probe kernel (ops/probe_kernel.probe_rows) answers them: nine
+  probe launches per epoch at 4 phases, two landing streams per phase and
+  the centers. Its chain layout must divide N (solver.chain_layout);
+- the unfused epoch (``epoch_probes``, ``run_epoch``), for any N: the
+  row-major field/ec surface over (T*N, 16) limbs with one batch inversion
+  of every denominator (ec.batch_inv: the Montgomery and inversion
+  kernels), and one probe launch for the whole stream of 2TN + T keys;
+- cross-epoch pipelining (``pipelined_step``, ``probe_keys_flush``): the
+  fused epoch's keys of epoch e are probed while epoch e + 1's are
+  computed, on a second CUDA stream.
 
 Hit record: a flat index into the epoch's probe space. With phases = 1:
   [0, TN)        + branch: t = i // N, j = i % N + 1  -> m = c_t - j
@@ -22,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import epoch_kernel as EK, planar as PL
+from ..ops import ec, epoch_kernel as EK, field as F
 from . import table as T
 
 # Unused hit slots (0xFFFFFFFF as int32 bits).
@@ -85,6 +97,61 @@ def decode_flat_phased(flat: int, t_jobs: int, n: int, phases: int):
     return (1, 2, 4)[code_i], p * per + t_local, j + 1
 
 
+def make_probe(dense, *, htsz: int):
+    """The (hi, lo) prefix probe of a table held whole on this device
+    (table.probe: one probe kernel launch per stream)."""
+    return lambda hi, lo: T.probe(hi, lo, dense, htsz=htsz)
+
+
+def epoch_probes(centers_x, centers_y, centers_inf, ox, oy, probe_fn, *,
+                 hit_cap: int = 512):
+    """The unfused epoch: T centers (T, 16) x N offsets (N, 16), row-major
+    limbs, any N. All T*N denominators Ox - Mx share one batch inversion
+    (a zero one, M == +-O_j, is an exact landing: code 4); the two landings
+    of a pair share its inverse. ``probe_fn(hi, lo)`` answers the one
+    stream of 2TN + T prefixes: make_probe, or parallel/sharded_table's
+    collective probe. centers_inf (T,) bool marks centers at infinity,
+    forced center hits.
+
+    Returns (hit flat-indices (hit_cap,) int32 FILL-padded, (1,) count),
+    in decode_flat's layout."""
+    t_jobs, n = centers_x.shape[0], ox.shape[0]
+    tn = t_jobs * n
+    cxb, cyb = centers_x[:, None], centers_y[:, None]
+    d = F.sub_mod(ox[None], cxb).reshape(tn, F.NLIMBS)
+    exact = F.is_zero(d)
+    d = F.select(exact, F.broadcast_const(1, device=d.device), d)
+    inv_d = ec.batch_inv(d).reshape(t_jobs, n, F.NLIMBS)
+    del d
+    keys = []
+    # x(M + O_j): lambda = (Oy - My) / (Ox - Mx); x(M - O_j) only needs the
+    # square of (-Oy - My) / (Ox - Mx), so (Oy + My) serves. One landing
+    # at a time, and each temporary freed: a plane of T*N int64 limbs is
+    # 537 MB at T*N = 2^22.
+    for num in (F.sub_mod, F.add_mod):
+        lam = F.mul_mod(num(oy[None], cyb), inv_d)
+        x = F.sub_mod(F.sub_mod(F.sqr_mod(lam), cxb), ox[None])
+        del lam
+        keys.append(F.x_prefix64(x.reshape(tn, F.NLIMBS)))
+        del x
+    del inv_d
+    hc = F.x_prefix64(centers_x)
+    found = probe_fn(torch.cat([keys[0][0], keys[1][0], hc[0]]),
+                     torch.cat([keys[0][1], keys[1][1], hc[1]]))
+    return _masks_to_hits(
+        [found[:tn] & ~exact, found[tn:2 * tn] & ~exact, exact,
+         found[2 * tn:] | centers_inf], hit_cap)
+
+
+def run_epoch(centers_x, centers_y, centers_inf, ox, oy, dense, *,
+              htsz: int, hit_cap: int = 512):
+    """The single-device unfused epoch: epoch_probes' hits through
+    make_probe, the count as a 0-d tensor, and giant_steps."""
+    idxs, cnt = epoch_probes(centers_x, centers_y, centers_inf, ox, oy,
+                             make_probe(dense, htsz=htsz), hit_cap=hit_cap)
+    return idxs, cnt[0], (2 * ox.shape[0] + 1) * centers_x.shape[0]
+
+
 def dense_probe(dense):
     """The probe of a table held whole on this device: (bucket, disc) int32
     streams -> found, one probe kernel launch (table.probe_keys)."""
@@ -124,9 +191,7 @@ def fused_epoch_probes(centers_x, centers_y, centers_inf, ox_pl, oy_pl,
         found_p = probe(keys[0], keys[1])
         found_m = probe(keys[2], keys[3])
         parts += [found_p & ~exact, found_m & ~exact, exact]
-    hc_hi, hc_lo = PL.x_prefix64(centers_x.T.long())
-    bc, dc = T.bucket_disc(hc_hi[0], hc_lo[0], htsz)
-    found_c = probe(PL.u32_bits(bc), PL.u32_bits(dc))
+    found_c = probe(*T.prefix_keys(*F.x_prefix64(centers_x), htsz))
     return _masks_to_hits(parts + [found_c | centers_inf], hit_cap)
 
 
@@ -142,3 +207,79 @@ def run_epoch_fused(centers_x, centers_y, centers_inf, ox_pl, oy_pl, dense,
         htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w, hit_cap=hit_cap,
         phases=phases)
     return idxs, cnt[0], (2 * ox_pl.shape[1] + 1) * centers_x.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Cross-epoch pipelining
+
+_probe_streams: dict = {}
+
+
+def probe_stream(device) -> torch.cuda.Stream:
+    """The second stream of a card, on which pipelined_step probes."""
+    device = torch.device(device)
+    if device not in _probe_streams:
+        _probe_streams[device] = torch.cuda.Stream(device)
+    return _probe_streams[device]
+
+
+def probe_keys_flush(keys, bc, dc, cinf, dense, *, hit_cap: int = 512):
+    """Probe one epoch's key bundle (its (8, T*N) key plane from
+    epoch_landing_keys, with phases = 1, and its centers' keys): the hits
+    in decode_flat's layout and the count as a 0-d tensor. Drains the last
+    bundle of a pipelined scan."""
+    exact = keys[4] != 0
+    fp = T.probe_keys(keys[0], keys[1], dense)
+    fm = T.probe_keys(keys[2], keys[3], dense)
+    fc = T.probe_keys(bc, dc, dense)
+    idxs, cnt = _masks_to_hits(
+        [fp & ~exact, fm & ~exact, exact, fc | cinf], hit_cap)
+    return idxs, cnt[0]
+
+
+def pipelined_step(prev_keys, prev_bc, prev_dc, prev_cinf, prev_valid,
+                   centers_x, centers_y, ox_pl, oy_pl, dense, *, htsz: int,
+                   chunk_c: int = EK.CHUNK_C, lanes_w: int = EK.LANES_W,
+                   hit_cap: int = 512):
+    """One step of a pipelined scan: the probe of the PREVIOUS epoch's key
+    bundle (probe_keys_flush) and THIS epoch's keys (epoch_landing_keys,
+    phases = 1, and its centers' keys). prev_valid False (the priming
+    step) probes nothing and reports no hits.
+
+    On the card the probe runs on a second stream (probe_stream), after
+    the work already queued on the current one (which made the previous
+    keys), while the epoch kernels run on the current stream; the current
+    stream then waits for the probe, so whatever is queued on it later,
+    the read of the hits included, sees them whole. On the CPU the two
+    halves run one after the other.
+
+    Returns (keys, bc, dc, idxs_prev, cnt_prev)."""
+    dev = centers_x.device
+    done = None
+    if not prev_valid:
+        idxs = torch.full((hit_cap,), FILL, dtype=torch.int32, device=dev)
+        cnt = torch.zeros((), dtype=torch.int32, device=dev)
+    elif dev.type == "cuda":
+        cur, side = torch.cuda.current_stream(dev), probe_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            idxs, cnt = probe_keys_flush(prev_keys, prev_bc, prev_dc,
+                                         prev_cinf, dense, hit_cap=hit_cap)
+            done = side.record_event()
+        # the previous bundle is read on side: its memory must not go
+        # back to the current stream's pool before side is done with it
+        for t in (prev_keys, prev_bc, prev_dc, prev_cinf):
+            t.record_stream(side)
+        # the hits are read on the current stream
+        idxs.record_stream(cur)
+        cnt.record_stream(cur)
+    else:
+        idxs, cnt = probe_keys_flush(prev_keys, prev_bc, prev_dc, prev_cinf,
+                                     dense, hit_cap=hit_cap)
+    keys = EK.epoch_landing_keys(
+        centers_x.T.contiguous(), centers_y.T.contiguous(), ox_pl, oy_pl,
+        htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w)
+    bc, dc = T.prefix_keys(*F.x_prefix64(centers_x), htsz)
+    if done is not None:
+        torch.cuda.current_stream(dev).wait_event(done)
+    return keys, bc, dc, idxs, cnt

@@ -1,15 +1,23 @@
 """End-to-end BSGS solver orchestration on one device
 (parallel/striped.MeshSolver runs the same loop over several).
 
-Counterpart of the fused path of ``bsgs_tpu/models/solver.py``: build the
-baby table and the giant offsets on the device, scan the key range in
-epochs, verify every hit exactly on the host, and report the private key.
+Counterpart of ``bsgs_tpu/models/solver.py``: build the baby table and the
+giant offsets on the device, scan the key range in epochs, verify every
+hit exactly on the host, and report the private key.
+
+An epoch is fused (the epoch kernels, giant.run_epoch_fused) wherever the
+config's chain layout fits N, else unfused (the row-major field/ec
+surface, giant.run_epoch), which takes any N; ``SolverConfig.fused``
+forces either. ``SolverConfig.cross_pipeline`` probes each fused epoch's
+keys while the next epoch's are computed, on a second CUDA stream
+(giant.pipelined_step).
 
 The scan loop is pipelined: up to ``cfg.pipeline`` epochs are queued on
 the device before the oldest one's hit count is read back. Job centers are
 made on the host and copied from pinned memory without waiting; the
 ``int(cnt)`` in ``_collect`` is the only point per epoch where the host
-waits for the device.
+waits for the device. ``solve(epoch_stride=, epoch_offset=)`` stripes the
+epochs over workers.
 
 Tables of w >= 2^28 are built streamed (table.build_baby_table_streamed;
 parallel/sharded_table.py splits one by bucket range over several cards).
@@ -61,14 +69,19 @@ class SolverConfig:
     w: baby-table size (keys covered per giant landing = 2w = stride s).
     htsz: bucket bits of the table (top bits of the 64-bit X prefix);
           None = auto (table.pick_htsz for the window).
-    n_offsets: offsets per job; must split into chains of chunk_c*lanes_w.
+    n_offsets: offsets per job.
     jobs_per_epoch: centers per epoch.
     pipeline: epochs in flight before the host reads one back.
     epoch_phases: job groups computed and probed one after another inside
-          an epoch (bounds the key plane held at once); 1 when it does not
-          divide jobs_per_epoch.
+          a fused epoch (bounds the key plane held at once); 1 when it does
+          not divide jobs_per_epoch, and in the unfused and pipelined
+          epochs.
     chunk_c, lanes_w: chain layout of the epoch kernels (ops/epoch_kernel;
-          chain_layout picks one for any n_offsets).
+          chain_layout picks one for any n_offsets that has one).
+    fused: the fused epoch (True), the unfused one (False), or None: fused
+          wherever the chain layout fits n_offsets (layout_fits).
+    cross_pipeline: on a fused solver, probe each epoch's keys while the
+          next epoch's are computed (giant.pipelined_step).
     positions: how a streamed build maps a hit to baby positions: "mirror",
           "rescan", or "auto" (rescan from tbl.STREAMED_W).
     verify_defer_epochs: drained epochs over which a rescan table's hits
@@ -88,6 +101,8 @@ class SolverConfig:
     epoch_phases: int = 4
     positions: str = "auto"
     verify_defer_epochs: int = VERIFY_DEFER_EPOCHS
+    fused: Optional[bool] = None
+    cross_pipeline: bool = False
 
     def __post_init__(self):
         if self.htsz is None:
@@ -119,24 +134,36 @@ class SolverConfig:
         return p if self.jobs_per_epoch % p == 0 else 1
 
 
+def layout_fits(n_offsets: int, jobs_per_phase: int, chunk_c: int,
+                lanes_w: int) -> bool:
+    """Whether the epoch kernels take N offsets in chains of chunk_c spaced
+    lanes_w apart: chunk_c * lanes_w divides N, and a phase whose chain
+    totals exceed EK.DIRECT_MAX, which folds them through the Montgomery
+    kernels, has lanes_w a multiple of 32."""
+    return (n_offsets % (chunk_c * lanes_w) == 0
+            and (jobs_per_phase * n_offsets // chunk_c <= EK.DIRECT_MAX
+                 or lanes_w % 32 == 0))
+
+
 def chain_layout(n_offsets: int, jobs_per_phase: int) -> tuple[int, int]:
     """(chunk_c, lanes_w) of the epoch kernels for N offsets: the longest
     chains (at most EK.CHUNK_C) whose length divides N, spaced as far apart
     as N allows (at most EK.LANES_W), so EK.CHUNK_C x EK.LANES_W whenever
-    4,096 divides N. A phase whose chain totals exceed EK.DIRECT_MAX folds
-    them through the Montgomery kernels, which need lanes_w a multiple of
-    32: N without such a layout is refused (ValueError)."""
+    4,096 divides N. N without a layout that fits (layout_fits: a fold
+    without 32-lane spacing) is refused (ValueError); the unfused epoch
+    takes it."""
     if n_offsets < 1:
         raise ValueError(f"n_offsets must be positive (got {n_offsets})")
     c = next(c for c in LAYOUT_CHUNKS if n_offsets % c == 0)
     w = next(w for w in LAYOUT_LANES if (n_offsets // c) % w == 0)
-    if jobs_per_phase * n_offsets // c > EK.DIRECT_MAX and w % 32:
+    if not layout_fits(n_offsets, jobs_per_phase, c, w):
         raise ValueError(
             f"n_offsets {n_offsets}: {jobs_per_phase * n_offsets // c} chain "
             f"totals a phase need a Montgomery fold, which takes lanes_w a "
             f"multiple of 32, and chains of {c} x {w} lanes are the widest "
-            f"that divide it; use a multiple of {c * 32} (the unfused epoch, "
-            f"which would take any N, is not ported)")
+            f"that divide it; use a multiple of {c * 32} for the fused "
+            f"epoch, or the unfused one (SolverConfig(fused=False)), which "
+            f"takes any N")
     return c, w
 
 
@@ -229,21 +256,32 @@ class Solver:
         if self.baby.htsz != cfg.htsz:
             cfg.htsz = self.baby.htsz
         n = cfg.n_offsets
-        if n % (cfg.chunk_c * cfg.lanes_w):
+        fits = layout_fits(n, cfg.jobs_per_epoch // cfg.phases, cfg.chunk_c,
+                           cfg.lanes_w)
+        self.fused = fits if cfg.fused is None else cfg.fused
+        if self.fused and not fits:
             raise ValueError(
-                f"n_offsets {n} is not a multiple of chunk_c*lanes_w "
-                f"({cfg.chunk_c}*{cfg.lanes_w})")
+                f"n_offsets {n} does not fit the epoch kernels' chains of "
+                f"chunk_c*lanes_w ({cfg.chunk_c}*{cfg.lanes_w}; "
+                f"chain_layout picks one); fused=False takes any N")
+        self._pipelined = bool(self.fused and cfg.cross_pipeline)
+        # an unfused or pipelined epoch is one block of decode_flat's layout
+        self._phases = cfg.phases if self.fused and not self._pipelined \
+            else 1
         # Giant offsets O_j = j*S*G, j = 1..N, as planar (16, N) planes
-        # (the fill doubles, so it runs to the next power of two).
+        # (the fill doubles, so it runs to the next power of two); the
+        # unfused epoch reads them row-major, as (N, 16) int64 views.
         s_g = ecpy.mul(cfg.stride)
         ox, oy = EK.fill_multiples_planar(
             s_g, s_g, 1 << (n - 1).bit_length(), device=self.device)
         self.ox_pl = ox[:, :n].contiguous()
         self.oy_pl = oy[:, :n].contiguous()
+        if not self.fused:
+            self.ox, self.oy = self.ox_pl.long().T, self.oy_pl.long().T
         # Epoch center stepping: centers advance by -(2N+1)*S*G.
         self.center_step = ecpy.neg(ecpy.mul(cfg.jobs_span * cfg.stride))
         self._verify_offsets()
-        self._phases = cfg.phases
+        self._prev = None  # pipelined: the last dispatched key bundle
 
     def _verify_offsets(self, checks: int = 4):
         """Spot-verify random offsets against exact host EC: column j must
@@ -295,23 +333,61 @@ class Solver:
         return -(-total_jobs // cfg.jobs_per_epoch)
 
     # -- epoch dispatch ------------------------------------------------------
-    def _dispatch(self, q0, epoch: int, hit_cap: Optional[int] = None):
-        """Queue one epoch on the device; returns a record (epoch,
-        first_job, idxs, cnt, giant_steps) with idxs/cnt still on the
-        device."""
+    def _epoch(self, q0, epoch: int, hit_cap: Optional[int] = None):
+        """Queue one whole epoch on the device (fused or unfused); returns
+        a record (epoch, first_job, idxs, cnt, giant_steps) with idxs/cnt
+        still on the device."""
         cfg = self.cfg
         first_job = epoch * cfg.jobs_per_epoch
         cx, cy, cinf = self._centers_on_device(q0, first_job)
-        idxs, cnt, gs = giant.run_epoch_fused(
-            cx, cy, cinf, self.ox_pl, self.oy_pl, self.baby.dense,
-            htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
-            hit_cap=hit_cap or cfg.hit_cap, phases=self._phases,
-        )
+        cap = hit_cap or cfg.hit_cap
+        if self.fused:
+            idxs, cnt, gs = giant.run_epoch_fused(
+                cx, cy, cinf, self.ox_pl, self.oy_pl, self.baby.dense,
+                htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
+                hit_cap=cap, phases=self._phases)
+        else:
+            idxs, cnt, gs = giant.run_epoch(
+                cx, cy, cinf, self.ox, self.oy, self.baby.dense,
+                htsz=cfg.htsz, hit_cap=cap)
         return epoch, first_job, idxs, cnt, gs
 
+    def _dispatch(self, q0, epoch: int):
+        """Queue epoch ``epoch``. Pipelined, this queues its keys and the
+        probe of the previously dispatched epoch's, and the record is that
+        epoch's (None epoch and no steps for the priming step; _flush
+        drains the last one)."""
+        if not self._pipelined:
+            return self._epoch(q0, epoch)
+        cfg = self.cfg
+        first_job = epoch * cfg.jobs_per_epoch
+        cx, cy, cinf = self._centers_on_device(q0, first_job)
+        prev = self._prev
+        keys, bc, dc, idxs, cnt = giant.pipelined_step(
+            *(prev[1:] if prev else (None,) * 4), prev is not None,
+            cx, cy, self.ox_pl, self.oy_pl, self.baby.dense, htsz=cfg.htsz,
+            chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w, hit_cap=cfg.hit_cap)
+        self._prev = (first_job, keys, bc, dc, cinf)
+        if prev is None:
+            return None, None, idxs, cnt, 0
+        return (prev[0] // cfg.jobs_per_epoch, prev[0], idxs, cnt,
+                (2 * cfg.n_offsets + 1) * cfg.jobs_per_epoch)
+
+    def _flush(self):
+        """Probe the last key bundle of a pipelined scan."""
+        cfg = self.cfg
+        first_job, keys, bc, dc, cinf = self._prev
+        self._prev = None
+        idxs, cnt = giant.probe_keys_flush(keys, bc, dc, cinf,
+                                           self.baby.dense,
+                                           hit_cap=cfg.hit_cap)
+        return (first_job // cfg.jobs_per_epoch, first_job, idxs, cnt,
+                (2 * cfg.n_offsets + 1) * cfg.jobs_per_epoch)
+
     def _redispatch(self, q0, epoch: int, cap: int):
-        """Overflow recovery: re-run one epoch with a larger hit buffer."""
-        return self._dispatch(q0, epoch, hit_cap=cap)
+        """Overflow recovery: re-run one epoch with a larger hit buffer,
+        outside the cross-epoch pipeline."""
+        return self._epoch(q0, epoch, hit_cap=cap)
 
     def _collect(self, pub, pk: int, rec):
         """Read one queued epoch's results back and DECODE any hits (no
@@ -350,13 +426,16 @@ class Solver:
     # -- main loop ----------------------------------------------------------
     def solve(self, pub: tuple, pk: int, pke: int,
               progress: Optional[Callable] = None,
+              epoch_stride: int = 1, epoch_offset: int = 0,
               max_epochs: Optional[int] = None, start_epoch: int = 0,
               on_epoch: Optional[Callable] = None) -> SolveResult:
         """Find k in [pk, pke] with k*G == pub (None key if exhausted).
 
-        The scan runs epochs start_epoch, start_epoch + 1, ... (a resumed
-        scan starts past 0); max_epochs caps the epochs dispatched (a timed
-        scan of part of a range). giant_steps counts this call's steps.
+        The scan runs epochs start_epoch * epoch_stride + epoch_offset, then
+        every epoch_stride-th after it (a resumed scan starts past 0;
+        epoch_stride/epoch_offset stripe the epochs over workers);
+        max_epochs caps the epochs dispatched (a timed scan of part of a
+        range). giant_steps counts this call's steps.
 
         On a rescan table (baby.lookup_fn) hits are pooled for up to
         cfg.verify_defer_epochs drained epochs and verified in one batch;
@@ -378,26 +457,36 @@ class Solver:
             return SolveResult(pk, 0, 0.0, 0, 0)
         q0 = ecpy.sub(pub, ecpy.mul(pk))
         total_epochs = self._total_epochs(pk, pke)
-        end = total_epochs
-        if max_epochs is not None:
-            end = min(end, start_epoch + max_epochs)
 
         steps = 0
         hits_checked = 0
         t0 = time.time()
-        epoch = start_epoch
+        epoch = start_epoch * epoch_stride + epoch_offset
+        dispatched = 0
         drained = 0
         depth = max(1, cfg.pipeline)
         inflight = collections.deque()
+        self._prev = None  # pipelined state is per solve
+
+        def may_dispatch():
+            return epoch < total_epochs and (max_epochs is None
+                                             or dispatched < max_epochs)
+
+        def pending_flush():
+            return self._pipelined and self._prev is not None
+
         defer = (max(0, cfg.verify_defer_epochs)
                  if self.baby.lookup_fn is not None else 0)
         pending = []
         first_pending = 0
         unreported = []  # (epoch, steps) drained, not yet called back
-        while epoch < end or inflight:
-            while epoch < end and len(inflight) < depth:
+        while may_dispatch() or inflight or pending_flush():
+            while may_dispatch() and len(inflight) < depth:
                 inflight.append(self._dispatch(q0, epoch))
-                epoch += 1
+                dispatched += 1
+                epoch += epoch_stride
+            if not inflight:
+                inflight.append(self._flush())
             rec = inflight.popleft()
             e = rec[0]
             while True:
@@ -409,13 +498,14 @@ class Solver:
                     cap = 1 << max(ov.count.bit_length() + 1, 8)
                     rec = self._redispatch(q0, e, cap)
             steps += gs
-            drained += 1
-            unreported.append((e, steps))
+            if e is not None:  # not the priming step of a pipelined scan
+                drained += 1
+                unreported.append((e, steps))
             if batch:
                 if not pending:
                     first_pending = drained
                 pending.extend(batch)
-            scan_done = not (epoch < end or inflight)
+            scan_done = not (may_dispatch() or inflight or pending_flush())
             if pending and (scan_done or drained - first_pending >= defer):
                 key, hc = self._verify(pending, pk, pke)
                 hits_checked += hc

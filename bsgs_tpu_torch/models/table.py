@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import epoch_kernel as EK, planar as PL, probe_kernel
+from ..ops import (ec, epoch_kernel as EK, field as F, planar as PL,
+                   probe_kernel)
 from ..utils import ecpy, native
 
 # Empty dense slots hold 0xFFFFFFFF. A probe whose own disc equals it
@@ -194,6 +195,29 @@ def pick_htsz(w: int, window: int = DEVICE_WINDOW) -> int:
 
 # ---------------------------------------------------------------------------
 # Prefix generation (device tiles)
+
+
+def _prefix_tiles(w: int, tile: int, device, first: int = 1,
+                  stride: int = 1):
+    """Yield (hi, lo) (take,) int32 prefix rows of (first + i*stride)G,
+    i = 0..w-1, tile by tile, on the row-major surface: ec.fill_multiples
+    builds the first tile (its length rounded to a power of two) and
+    ec.extend_tile advances it by tile*stride*G. The same stream as
+    _prefix_tiles_planar, which the builds run."""
+    tile = min(tile, 1 << max(1, (w - 1).bit_length()))
+    bx, by = ec.fill_multiples(ecpy.mul(first), ecpy.mul(stride), tile,
+                               device=device)
+    step = ecpy.mul(tile * stride)
+    c = [torch.from_numpy(F.to_limbs(v).astype(np.int64)).to(device)
+         for v in (*step, *ecpy.dbl(step))]
+    done = 0
+    while done < w:
+        take = min(tile, w - done)
+        hi, lo = F.x_prefix64(bx)
+        yield hi[:take], lo[:take]
+        done += take
+        if done < w:
+            bx, by, _ = ec.extend_tile(bx, by, *c)
 
 
 def _prefix_tiles_planar(w: int, tile: int, device, first: int = 1,
@@ -651,3 +675,23 @@ def probe_keys(bucket, disc, dense):
     the probe kernel on the card, its plain version on the CPU
     (ops/probe_kernel.probe_rows)."""
     return probe_kernel.probe_rows(bucket, disc, dense)
+
+
+def prefix_keys(hi, lo, htsz: int):
+    """64-bit prefixes (hi32, lo32 as int32 bits) -> their (bucket, disc)
+    probe keys as int32 bits."""
+    bucket, disc = bucket_disc(PL.u32_value(hi), PL.u32_value(lo), htsz)
+    return PL.u32_bits(bucket), PL.u32_bits(disc)
+
+
+def probe(hi, lo, dense, *, htsz: int):
+    """Membership probe of 64-bit prefixes (hi32, lo32 as int32 bits):
+    their probe keys (prefix_keys), then one probe_keys."""
+    return probe_keys(*prefix_keys(hi, lo, htsz), dense)
+
+
+def probe_x(x_limbs, table: BabyTable):
+    """Probe full X coordinates ((..., 16) limbs) against a BabyTable."""
+    hi, lo = F.x_prefix64(x_limbs)
+    return probe(hi.reshape(-1), lo.reshape(-1), table.dense,
+                 htsz=table.htsz).reshape(hi.shape)

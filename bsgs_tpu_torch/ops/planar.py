@@ -50,6 +50,26 @@ def const_like(x: int, ref: torch.Tensor) -> torch.Tensor:
     return _const(x, ref.device).view((NLIMBS,) + (1,) * (ref.dim() - 1))
 
 
+def p_col(device=None) -> torch.Tensor:
+    """The prime p as a (16, 1) planar column."""
+    return const_col(F.P_INT, device)
+
+
+def one_col(device=None) -> torch.Tensor:
+    """The field element 1 as a (16, 1) planar column."""
+    return const_col(1, device)
+
+
+def from_rows(a: torch.Tensor) -> torch.Tensor:
+    """(..., B, 16) row-major -> (..., 16, B) planar (a view)."""
+    return a.transpose(-1, -2)
+
+
+def to_rows(a: torch.Tensor) -> torch.Tensor:
+    """(..., 16, B) planar -> (..., B, 16) row-major (a view)."""
+    return a.transpose(-1, -2)
+
+
 def u32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> int32 tensor with the same 32 bits."""
     return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
@@ -91,6 +111,22 @@ def _fold_canonical(v: torch.Tensor, top: torch.Tensor) -> torch.Tensor:
 def is_zero(a: torch.Tensor) -> torch.Tensor:
     """(16, *batch) -> (1, *batch) bool."""
     return (a == 0).all(dim=0, keepdim=True)
+
+
+def eq(a, b):
+    """(16, *batch) pair -> (1, *batch) bool: equal limbs."""
+    return (a == b).all(dim=0, keepdim=True)
+
+
+def add_raw(a, b):
+    """a + b -> (sum mod 2^256, carry (1, *batch) in {0, 1})."""
+    return _carry(a + b)
+
+
+def sub_raw(a, b):
+    """a - b -> (difference mod 2^256, borrow (1, *batch) in {0, 1})."""
+    d, c = _carry(a - b)
+    return d, -c
 
 
 def select(mask, a, b):

@@ -25,6 +25,8 @@ bsgs_tpu's in the tests and on the card by chip_smoke.py.
 Each route's local answer is the probe kernel (ops/probe_kernel.probe_rows)
 on the rank's own rows (probe_own_rows). ``*_in_process`` runs n ranks'
 shares of either route in one process with the exchanges made by hand.
+The unfused epoch probes (hi, lo) prefixes: ``make_sharded_probe`` and
+``make_alltoall_probe`` split them into keys for the two routes.
 """
 
 from __future__ import annotations
@@ -234,6 +236,29 @@ def make_probe(spec: ShardedTableSpec, mesh):
                                keys[1::2].reshape(-1), spec)
         found = mesh.all_reduce_max(found.to(torch.uint8))
         return found[mesh.rank * m:(mesh.rank + 1) * m].bool()
+
+    return probe
+
+
+def make_sharded_probe(spec: ShardedTableSpec, mesh):
+    """The (hi, lo) prefix probe of the all_gather route (the unfused
+    epoch's stream): each prefix's (bucket, disc) split, then make_probe's
+    collective probe."""
+    core = make_probe(spec, mesh)
+    return lambda hi, lo: core(*T.prefix_keys(hi, lo, spec.htsz))
+
+
+def make_alltoall_probe(specs, slack: float = 2.0):
+    """The (hi, lo) prefix form of the all_to_all route, n ranks in one
+    process: probe(his, los) -> each rank's found masks, through
+    probe_all_to_all_in_process (the route is no collective yet)."""
+    htsz = specs[0].htsz
+
+    def probe(his, los):
+        keys = [T.prefix_keys(h, lo, htsz) for h, lo in zip(his, los)]
+        return probe_all_to_all_in_process([k[0] for k in keys],
+                                           [k[1] for k in keys], specs,
+                                           slack)
 
     return probe
 

@@ -6,7 +6,8 @@ collection and the epoch count, so the solve loop, its pipelining,
 deferred verification, callbacks and resume are the single card's.
 
 One epoch of the loop is a super-epoch of n * T jobs: rank r runs jobs
-e*n*T + r*T ... + T - 1 through the single card's fused epoch, then
+e*n*T + r*T ... + T - 1 through the single card's epoch (fused, or
+unfused when the base solver is: giant.epoch_probes), then
 gathers every rank's hit count and buffer onto its device (one
 ``all_gather`` queued on the stream: the host does not wait). Every
 rank then decodes, verifies and decides the same things in the same
@@ -15,7 +16,10 @@ makes every rank re-run the super-epoch with the same larger buffer.
 
 The table is either held whole by every rank (the epoch is then exactly
 the single card's) or split by bucket range (sharded_table), when each
-probe goes through the all_gather route.
+probe goes through the all_gather route: by (bucket, disc) keys in the
+fused epoch (sharded_table.make_probe), by (hi, lo) prefixes in the
+unfused one (sharded_table.make_sharded_probe). Every rank probes streams
+of the same lengths, so the collectives stay matched.
 """
 
 from __future__ import annotations
@@ -35,8 +39,8 @@ class MeshSolver(S.Solver):
     shard_baby_table splits the dense table by bucket range over the
     ranks: a table built sharded (sharded_table.build_sharded_table) must
     be split over exactly this mesh; a table held whole is split here into
-    mesh.world shards (shard_table). Cross-epoch pipelining is not ported,
-    here or on one card."""
+    mesh.world shards (shard_table). Cross-epoch pipelining stays off, as
+    in bsgs_tpu: a super-epoch's hits are gathered as it ends."""
 
     def __init__(self, base: S.Solver, mesh,
                  shard_baby_table: bool = False):
@@ -47,12 +51,21 @@ class MeshSolver(S.Solver):
         self.cfg = base.cfg
         self.baby = base.baby
         self.ox_pl, self.oy_pl = base.ox_pl, base.oy_pl
+        self.fused = base.fused
+        if not self.fused:
+            self.ox, self.oy = base.ox, base.oy
         self.center_step = base.center_step
+        self._pipelined = False
+        self._prev = None
         self._phases = base._phases
         self.mesh = mesh
         self.shard_baby_table = shard_baby_table
         self._spec = None
-        self._probe = giant.dense_probe(self.baby.dense)
+        # the fused epoch probes (bucket, disc) keys, the unfused one
+        # (hi, lo) prefixes
+        self._probe = (giant.dense_probe(self.baby.dense) if self.fused
+                       else giant.make_probe(self.baby.dense,
+                                             htsz=self.cfg.htsz))
         if self.baby.shard is not None:
             if not shard_baby_table:
                 raise ValueError("a table built sharded is probed only "
@@ -65,13 +78,14 @@ class MeshSolver(S.Solver):
         elif shard_baby_table:
             self._spec = st.shard_table(self.baby, mesh.world, mesh.rank)
         if self._spec is not None:
-            self._probe = st.make_probe(self._spec, mesh)
+            self._probe = (st.make_probe if self.fused
+                           else st.make_sharded_probe)(self._spec, mesh)
 
     @property
     def _jobs_per_super(self) -> int:
         return self.cfg.jobs_per_epoch * self.mesh.world
 
-    def _dispatch(self, q0, epoch: int, hit_cap: Optional[int] = None):
+    def _epoch(self, q0, epoch: int, hit_cap: Optional[int] = None):
         """Queue this rank's T jobs of super-epoch ``epoch`` and the gather
         of every rank's hits; returns (epoch, first_job, every rank's count
         and hit buffer (n*(1+cap),) on the device, giant_steps of all
@@ -80,10 +94,15 @@ class MeshSolver(S.Solver):
         first_job = epoch * self._jobs_per_super
         cx, cy, cinf = self._centers_on_device(
             q0, first_job + self.mesh.rank * cfg.jobs_per_epoch)
-        idxs, cnt = giant.fused_epoch_probes(
-            cx, cy, cinf, self.ox_pl, self.oy_pl, self._probe,
-            htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
-            hit_cap=hit_cap or cfg.hit_cap, phases=self._phases)
+        cap = hit_cap or cfg.hit_cap
+        if self.fused:
+            idxs, cnt = giant.fused_epoch_probes(
+                cx, cy, cinf, self.ox_pl, self.oy_pl, self._probe,
+                htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
+                hit_cap=cap, phases=self._phases)
+        else:
+            idxs, cnt = giant.epoch_probes(cx, cy, cinf, self.ox, self.oy,
+                                           self._probe, hit_cap=cap)
         gs = (2 * cfg.n_offsets + 1) * self._jobs_per_super
         gathered = self.mesh.all_gather(torch.cat((cnt, idxs)))
         return epoch, first_job, gathered, gs

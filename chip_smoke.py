@@ -43,6 +43,15 @@ nonzero:
    and drive parallel.striped.MeshSolver over a replicated w=2^26 table
    (its own table, a planted key of super-epoch 1), and time its 8-epoch
    scans beside the plain Solver's in turns, with its host waits;
+   then the paths beside the fused epoch: the row-major field and EC
+   ops on the card against the CPU, bit for bit; the command line at
+   --w 26 --n-offsets 262143, an N that no chain layout fits, solved
+   through the unfused epoch, whose 8-epoch scans are timed (launches
+   per epoch asserted, peak memory, a profile); one epoch at N=2^18
+   through both epochs, the same hit records; cross-epoch pipelining at
+   the main path's shapes (a planted key, 8-epoch scans in turns with the
+   direct solver, profiles of both with the overlap of the two streams);
+   MeshSolver over the unfused epoch, replicated and sharded;
 7. free that table and drive the streamed path: hold the six kernels
    against their plain versions again at this path's shapes (24 bucket
    bits, 2^20-lane tiles), build the w=2^30 table (htsz=24, rescan
@@ -69,13 +78,16 @@ nonzero:
 8. profile both table builds (device time by kernel, the builds' parts
    timed one by one), one tile advance at each path's tile (exactly four
    device launches) and one residue scan;
-9. print the kernels' JSON line (every kernel launched on each path: the
-   two solves, the command line's two, the two MeshSolver paths and the
-   command line's --shard-table path), the card's name and power limit,
-   and the result line.
+9. print the kernels' JSON line (every kernel of a path launched on it:
+   the two solves, the command line's two, the two MeshSolver paths, the
+   command line's --shard-table path, and the unfused command line, the
+   pipelined solve and the two unfused MeshSolver paths, which launch no
+   epoch kernel where the epoch is unfused), the card's name and power
+   limit, and the result line.
 
 Each path's launches must show one forward and one backward Montgomery
-pass per add-const pass: a tile advance or fill pass folds once.
+pass per add-const pass: a tile advance or fill pass folds once, and
+only the unfused and pipelined epochs add folds of their own.
 
 Needs one CUDA card; exits nonzero without one, or without the package
 beside it.
@@ -133,6 +145,24 @@ TUNER_MARGIN = 0.10
 LAUNCHES_PER_EPOCH = {"epoch_fwd": 4, "epoch_bwd": 4, "mont_fwd": 0,
                       "mont_bwd": 0, "fermat": 4, "add_const": 0,
                       "probe_rows": 9}
+
+# The same for the unfused epoch at N = UNFUSED_N, T=16 (its T*N lanes'
+# denominators padded to 2^22 fold twice in chains of 16 x 256, then one
+# inversion; one probe of the whole stream), and for the pipelined epoch at
+# N=2^18, T=16 (one phase: its 2^18 chain totals fold once; two landing
+# probes and the centers' probe of the previous epoch).
+UNFUSED_N = (1 << 18) - 1
+LAUNCHES_PER_EPOCH_UNFUSED = {"epoch_fwd": 0, "epoch_bwd": 0, "mont_fwd": 2,
+                              "mont_bwd": 2, "fermat": 1, "add_const": 0,
+                              "probe_rows": 1}
+LAUNCHES_PER_EPOCH_PIPELINED = {"epoch_fwd": 1, "epoch_bwd": 1,
+                                "mont_fwd": 1, "mont_bwd": 1, "fermat": 1,
+                                "add_const": 0, "probe_rows": 3}
+# the kernels a path whose epochs are unfused launches (its table build
+# and offsets' fill add-const passes, their folds and inversions, and the
+# probe): the epoch kernels are not among them
+UNFUSED_KERNELS = ("mont_fwd", "mont_bwd", "fermat", "add_const",
+                   "probe_rows")
 
 TPU_KERNEL = {
     "epoch_fwd": "bsgs_tpu/ops/epoch_kernel.py:48",
@@ -806,10 +836,12 @@ def check_streamed_against_device_build(baby, device) -> None:
         f"build's, entry for entry")
 
 
-def profile_scan(solver, pub, pk: int, epochs: int) -> None:
+def profile_scan(solver, pub, pk: int, epochs: int) -> dict:
     """Where an epoch's time goes: torch.profiler over a short scan, device
     time by kernel, the device's busy share of the wall time, and the host
-    time spent queueing epochs (Solver._dispatch)."""
+    time spent queueing epochs (Solver._dispatch). Returns those per epoch
+    and, from the trace, how long kernels of two streams ran at once
+    (stream_overlap)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -837,14 +869,49 @@ def profile_scan(solver, pub, pk: int, epochs: int) -> None:
 
     rows = device_rows(prof)
     busy = sum(e.self_device_time_total for e in rows) / 1e6
+    overlap = stream_overlap(prof)
     log(f"profile: {epochs} epochs in {wall * 1e3:.2f} ms wall (profiler "
         f"on); device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%); "
-        f"host queueing {1e3 * sum(host) / len(host):.2f} ms per epoch")
+        f"host queueing {1e3 * sum(host) / len(host):.2f} ms per epoch; "
+        f"streams {overlap['streams']}, probe kernels under the epoch's "
+        f"others {overlap['overlap_ms']:.3f} ms")
     for e in rows[:10]:
         us = e.self_device_time_total
         log(f"profile: {us / 1e3 / epochs:8.3f} ms/epoch "
             f"{100 * us / 1e6 / busy:5.1f}% x{e.count // epochs:<4d} "
             f"{e.key[:80]}")
+    return dict(wall_ms_per_epoch=1e3 * wall / epochs,
+                busy_ms_per_epoch=1e3 * busy / epochs,
+                host_ms_per_epoch=1e3 * sum(host) / len(host), **overlap)
+
+
+def stream_overlap(prof) -> dict:
+    """From a profile's trace: the CUDA streams its kernels ran on, and the
+    time during which a probe kernel (probe_rows) ran while an epoch or
+    inversion kernel ran on another stream, in ms (0 on one stream)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    kernels = [e for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel" and "dur" in e]
+    streams = sorted({e.get("args", {}).get("stream") for e in kernels},
+                     key=str)
+    probes, others = [], []
+    for e in kernels:
+        span = (e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"))
+        if "probe_rows" in e["name"]:
+            probes.append(span)
+        elif any(k in e["name"] for k in ("epoch_fwd", "epoch_bwd", "mont_",
+                                          "modinv")):
+            others.append(span)
+    us = 0.0
+    for a0, a1, sa in probes:
+        for b0, b1, sb in others:
+            if sa != sb:
+                us += max(0.0, min(a1, b1) - max(a0, b0))
+    return dict(streams=len(streams), overlap_ms=us / 1e3)
 
 
 def count_syncs(solver, pub, pk: int, epochs: int, label: str = "",
@@ -1130,33 +1197,38 @@ def build_times(device) -> dict:
     return out
 
 
-def read_launches(path: str, totals: dict) -> None:
+def read_launches(path: str, totals: dict, kernels=None,
+                  epoch_folds: bool = False) -> None:
     """Record the launch counts of the path just driven (the counters were
-    set to 0 just before it) and fail if a kernel was not launched."""
+    set to 0 just before it) and fail if a kernel of the path (kernels,
+    default all seven) was not launched. Every add-const pass folds once
+    (one forward and one backward Montgomery pass); the fused epochs fold
+    nothing, the unfused and pipelined ones (epoch_folds) fold too, so
+    there the passes may outnumber the add-const passes."""
     from bsgs_tpu_torch.ops import _cuda
 
     launches = dict(_cuda.LAUNCHES)
     totals[path] = launches
     log(f"launches on the {path} path: {launches}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in (kernels or _cuda.KERNELS)) <= 0:
         raise AssertionError(f"a kernel was not launched on the {path} "
                              f"path: {launches}")
-    # every tile advance and fill pass folds once (one forward and one
-    # backward pass around one inversion); the epochs launch neither pass
-    passes = {launches[k] for k in ("mont_fwd", "mont_bwd", "add_const")}
-    if len(passes) != 1:
+    fwd, bwd, addc = (launches[k] for k in ("mont_fwd", "mont_bwd",
+                                            "add_const"))
+    if fwd != bwd or (fwd < addc if epoch_folds else fwd != addc):
         raise AssertionError(f"the {path} path's add-const passes do not "
                              f"each fold once: {launches}")
 
 
 def timed_scans(solver, pub, pk: int, epochs: int, repeats: int,
-                residue_scan: bool = False):
+                residue_scan: bool = False, per_epoch=None):
     """Scans of a pubkey with no key in range, as bench.py times them:
     host clock around work that ends in a synchronise. Returns the rates
     (giant-steps/s) and the last result. Unless its verification runs a
     residue scan (which generates points), a scan must launch exactly
-    LAUNCHES_PER_EPOCH per epoch: the inversion once a phase and no
-    Montgomery pass, so a return to a deeper tree fails here."""
+    per_epoch (default LAUNCHES_PER_EPOCH: the inversion once a phase and
+    no Montgomery pass) per epoch, so a return to a deeper tree fails
+    here."""
     import torch
 
     from bsgs_tpu_torch.ops import _cuda
@@ -1173,13 +1245,14 @@ def timed_scans(solver, pub, pk: int, epochs: int, repeats: int,
         if scan.key is not None or scan.epochs != epochs:
             raise AssertionError(f"unexpected scan result {scan}")
         made = {k: n - before[k] for k, n in _cuda.LAUNCHES.items()}
-        want = {k: n * epochs for k, n in LAUNCHES_PER_EPOCH.items()}
+        want = {k: n * epochs
+                for k, n in (per_epoch or LAUNCHES_PER_EPOCH).items()}
         if not residue_scan and made != want:
             raise AssertionError(f"launches in {epochs} epochs: {made}, "
                                  f"expected {want}")
     if not residue_scan:
         log(f"launches per epoch in each of these {repeats} scans of "
-            f"{epochs} epochs: {LAUNCHES_PER_EPOCH}")
+            f"{epochs} epochs: {per_epoch or LAUNCHES_PER_EPOCH}")
     return rates, scan
 
 
@@ -1570,12 +1643,16 @@ def mesh_of_one():
     return mesh
 
 
-def scans_in_turns(solvers: dict, order, pub, pk: int, epochs: int) -> dict:
+def scans_in_turns(solvers: dict, order, pub, pk: int, epochs: int,
+                   per_epoch=None) -> dict:
     """8-epoch (or so) scans of each solver, taken in the given order
-    (A, B, B, A), so that two are compared within one run: rates by name."""
+    (A, B, B, A), so that two are compared within one run: rates by name.
+    per_epoch: the launches per epoch by solver name, where not the
+    default."""
     rates = {name: [] for name in solvers}
     for name in order:
-        r, _ = timed_scans(solvers[name], pub, pk, epochs=epochs, repeats=1)
+        r, _ = timed_scans(solvers[name], pub, pk, epochs=epochs, repeats=1,
+                           per_epoch=(per_epoch or {}).get(name))
         rates[name] += r
     return rates
 
@@ -1967,6 +2044,300 @@ def cost_of_128_jobs(solver, pk: int) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# The row-major surface, the unfused epoch (any N) and cross-epoch
+# pipelining
+
+
+def rowmajor_ops(device, m: int = 2048) -> dict:
+    """The row-major field and EC ops (ops/field.py, ops/ec.py) on the card
+    against the same ops on the CPU, bit for bit, at m lanes: random
+    canonical values with the inversion's edge values planted, and points
+    of a doubling fill. scalar_mul is left to the CPU tests (its 255
+    doublings are some 10^6 small launches here). Returns seconds by
+    op, card and CPU."""
+    import numpy as np
+    import torch
+
+    from bsgs_tpu_torch.ops import ec, field as F
+    from bsgs_tpu_torch.utils import ecpy
+
+    rng = np.random.default_rng(SEED + 8)
+    a = plant_edge_lanes(random_planes(rng, 16, m, "cpu")).long().T
+    b = random_planes(rng, 16, m, "cpu").long().T
+    one = F.broadcast_const(1)
+    step = ecpy.mul(3 << 100)
+    c = ecpy.mul(m << 100)
+    col = [torch.from_numpy(F.to_limbs(v).astype(np.int64))
+           for v in (*c, *ecpy.dbl(c))]
+    ops = {
+        "add_raw": lambda x, y, px, py: F.add_raw(x, y),
+        "sub_raw": lambda x, y, px, py: F.sub_raw(x, y),
+        "geq": lambda x, y, px, py: F.geq(x, y),
+        "eq": lambda x, y, px, py: F.eq(x, x) & ~F.eq(x, y),
+        "is_zero": lambda x, y, px, py: F.is_zero(x),
+        "add_mod": lambda x, y, px, py: F.add_mod(x, y),
+        "sub_mod": lambda x, y, px, py: F.sub_mod(x, y),
+        "neg_mod": lambda x, y, px, py: F.neg_mod(x),
+        "mul_mod": lambda x, y, px, py: F.mul_mod(x, y),
+        "sqr_mod": lambda x, y, px, py: F.sqr_mod(x),
+        "mul_small_mod": lambda x, y, px, py: F.mul_small_mod(x, 977),
+        "pow_mod_bits": lambda x, y, px, py: F.pow_mod_bits(x, 65537),
+        "inv_mod": lambda x, y, px, py: F.inv_mod(x),
+        "shifts_bits": lambda x, y, px, py: (
+            F.shr_bits(x, 17), F.shl_bits(x, 200), F.test_bit(x, 255),
+            F.is_even(x)),
+        "x_prefix64": lambda x, y, px, py: F.x_prefix64(x),
+        "batch_inv": lambda x, y, px, py: ec.batch_inv(
+            F.add_mod(y, one.to(y.device))),
+        "fill_multiples": lambda x, y, px, py: ec.fill_multiples(
+            ecpy.G, step, m, with_inf=True, device=x.device),
+        "point_dbl": lambda x, y, px, py: ec.point_dbl(px, py),
+        "point_add_full": lambda x, y, px, py: ec.point_add_full(
+            px, py, x[:, 0] == 0, px.flip(0), py.flip(0), x[:, 1] == 0),
+        "add_common": lambda x, y, px, py: ec.add_common(
+            px, py, *(v.to(x.device) for v in col)),
+        "extend_tile": lambda x, y, px, py: ec.extend_tile(
+            px, py, *(v.to(x.device) for v in col)),
+    }
+    px, py = ec.fill_multiples(ecpy.G, step, m, device="cpu")
+    args = {"cpu": (a, b, px, py),
+            "cuda": tuple(v.to(device) for v in (a, b, px, py))}
+    took = {}
+    for name, fn in ops.items():
+        outs = {}
+        for where in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args[where])
+            torch.cuda.synchronize()
+            took.setdefault(name, {})[where] = time.perf_counter() - t0
+            outs[where] = out if isinstance(out, tuple) else (out,)
+        for g, w in zip(*outs.values()):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"row-major {name}: card and CPU "
+                                     f"differ at {m} lanes")
+    log(f"row-major ops at {m} lanes: card == CPU, bit for bit, for "
+        f"{', '.join(ops)}; seconds card/CPU "
+        + ", ".join(f"{k} {v['cuda']:.3f}/{v['cpu']:.3f}"
+                    for k, v in took.items()))
+    return took
+
+
+def unfused_w26(baby, path_launches: dict) -> dict:
+    """The command line at --w 26 --n-offsets 262143, an N that no chain
+    layout fits (solver.chain_layout refuses it): a planted key of epoch 1
+    found through the unfused epoch, counted as the "cli unfused w=2^26"
+    path; then, on phase 3's table, 8-epoch scans timed (LAUNCHES_PER_EPOCH_
+    UNFUSED per epoch), the scan's peak device memory above the table and
+    offsets, and a profile."""
+    import torch
+
+    from bsgs_tpu_torch.models import solver as S
+    from bsgs_tpu_torch.ops import _cuda
+    from bsgs_tpu_torch.utils import codecs, ecpy
+
+    cfg = S.SolverConfig(w=1 << 26, n_offsets=UNFUSED_N)
+    try:
+        S.chain_layout(cfg.n_offsets, cfg.jobs_per_epoch // cfg.phases)
+        raise AssertionError(f"chain_layout took N={UNFUSED_N}")
+    except ValueError:
+        pass
+    rng = random.Random(SEED + 262143)
+    kpe = cfg.keys_per_epoch
+    pk = 1 << 42
+    key = pk + kpe + rng.randrange(kpe)
+    _cuda.reset_launches()
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            rc, text, err, took = run_cli(
+                ["--pub", codecs.format_pubkey(ecpy.mul(key)), "--w", 26,
+                 "--n-offsets", UNFUSED_N, "--pk", f"{pk:x}",
+                 "--pke", f"{pk + 3 * kpe - 1:x}"],
+                f"--n-offsets {UNFUSED_N}, unfused")
+            if rc != 0 or read_win() != [win_line(key)]:
+                raise AssertionError(f"cli unfused: {rc} {text[-300:]} "
+                                     f"{err}")
+        finally:
+            os.chdir(here)
+    read_launches("cli unfused w=2^26", path_launches,
+                  kernels=UNFUSED_KERNELS, epoch_folds=True)
+    solver = S.Solver(cfg, baby=baby, device=baby.dense.device)
+    if solver.fused:
+        raise AssertionError("the solver took the fused epoch")
+    pub = ecpy.mul((1 << 200) + 4242)
+    solver.solve(pub, pk, pk + kpe - 1, max_epochs=1)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rates, _ = timed_scans(solver, pub, pk, epochs=8, repeats=2,
+                           per_epoch=LAUNCHES_PER_EPOCH_UNFUSED)
+    peak = torch.cuda.max_memory_allocated() - held
+    log(f"unfused w=2^26, N={UNFUSED_N}, T=16: 8-epoch scans "
+        f"{', '.join(f'{r:.1f}' for r in rates)} giant-steps/s; peak device "
+        f"memory {peak} B above the table and offsets "
+        f"({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB in all)")
+    prof = profile_scan(solver, pub, pk, epochs=3)
+    return dict(cli_seconds=took, rates=rates, peak_bytes=peak,
+                launches_per_epoch=LAUNCHES_PER_EPOCH_UNFUSED, profile=prof)
+
+
+def _plant_landings(baby, cfg, cx, cy, picks):
+    """Write the discs of the landings (code, t, j) (1: x(M_t + O_j), 2:
+    x(M_t - O_j), 5: x(M_t)) into free slots of the table; returns the
+    slots, for undoing it."""
+    import torch
+
+    from bsgs_tpu_torch.models import table as T
+    from bsgs_tpu_torch.ops import field as F
+    from bsgs_tpu_torch.utils import ecpy
+
+    slots = []
+    for code, t, j in picks:
+        m_pt = (F.from_limbs(cx[t]), F.from_limbs(cy[t]))
+        o_pt = ecpy.mul(j * cfg.stride)
+        pt = {1: lambda: ecpy.add(m_pt, o_pt), 2: lambda: ecpy.sub(m_pt, o_pt),
+              5: lambda: m_pt}[code]()
+        pre = pt[0] & ((1 << 64) - 1)
+        bucket = pre >> (64 - cfg.htsz)
+        free = torch.nonzero(baby.dense[bucket] == T.DENSE_FILL).flatten()
+        col = int(free[0])
+        baby.dense[bucket, col] = T._i32((pre >> (32 - cfg.htsz))
+                                         & 0xFFFFFFFF)
+        slots.append((bucket, col))
+    return slots
+
+
+def unfused_vs_fused(solver, baby) -> dict:
+    """One epoch at N=2^18, T=16 through the fused epoch (4 phases) and the
+    unfused one, the same centers, on phase 3's table with the landings of
+    six (code, t, j) planted: the decoded hit records (code, t, j) are the
+    same set, the planted ones in it."""
+    import dataclasses
+
+    from bsgs_tpu_torch.models import giant, solver as S, table as T
+    from bsgs_tpu_torch.utils import ecpy
+
+    cfg = solver.cfg
+    un = S.Solver(dataclasses.replace(cfg, fused=False), baby=baby,
+                  device=solver.device)
+    q0 = ecpy.mul((1 << 150) + 31337)
+    cx, cy, _ = solver.epoch_centers(q0, 0, cfg.jobs_per_epoch)
+    picks = [(1, 0, 1), (2, 3, 5), (1, 7, cfg.n_offsets), (2, 15, 77777),
+             (5, 9, 0), (1, 12, 131072)]
+    slots = _plant_landings(baby, cfg, cx, cy, picks)
+    try:
+        sets = {}
+        for name, s in (("fused", solver), ("unfused", un)):
+            _, _, idxs, cnt, _ = s._epoch(q0, 0)
+            flat = giant.hit_indices(idxs.cpu().numpy())
+            if int(cnt) != len(flat):
+                raise AssertionError(f"{name}: {int(cnt)} hits, "
+                                     f"{len(flat)} decoded")
+            sets[name] = {giant.decode_flat_phased(
+                int(f), cfg.jobs_per_epoch, cfg.n_offsets, s._phases)
+                for f in flat}
+    finally:
+        for bucket, col in slots:
+            baby.dense[bucket, col] = T.DENSE_FILL
+    if sets["fused"] != sets["unfused"] or not set(picks) <= sets["fused"]:
+        raise AssertionError(f"hit records differ: {sets}")
+    log(f"unfused vs fused epoch at N=2^18, T=16: the same "
+        f"{len(sets['fused'])} hit records {sorted(sets['fused'])}")
+    return dict(records=sorted(sets["fused"]))
+
+
+def cross_pipeline_w26(solver, baby, path_launches: dict) -> dict:
+    """The main path's shapes (w=2^26, T=16, N=2^18) with
+    cross_pipeline=True: a planted key of epoch 1 found, counted as the
+    "pipelined w=2^26" path; 8-epoch scans of the pipelined and the direct
+    solver in turns; a profile of each (host and device-busy ms per
+    epoch, and how long probe kernels ran under the epoch's others on
+    another stream)."""
+    import dataclasses
+
+    import torch
+
+    from bsgs_tpu_torch.models import solver as S
+    from bsgs_tpu_torch.ops import _cuda
+    from bsgs_tpu_torch.utils import ecpy
+
+    cfg = dataclasses.replace(solver.cfg, cross_pipeline=True)
+    rng = random.Random(SEED + 3)
+    _cuda.reset_launches()
+    ps = S.Solver(cfg, baby=baby, device=solver.device)
+    if not ps._pipelined:
+        raise AssertionError("the solver is not pipelined")
+    pk = 1 << 43
+    key = pk + cfg.keys_per_epoch + rng.randrange(cfg.keys_per_epoch)
+    res = ps.solve(ecpy.mul(key), pk, pk + 3 * cfg.keys_per_epoch - 1)
+    torch.cuda.synchronize()
+    if res.key != key:
+        raise AssertionError(f"pipelined: planted key {key:#x} not found: "
+                             f"{res}")
+    log(f"pipelined w=2^26: planted key {key:#x} found after {res.epochs} "
+        f"drained epochs")
+    read_launches("pipelined w=2^26", path_launches, epoch_folds=True)
+    pub = ecpy.mul((1 << 200) + 12345)
+    ps.solve(pub, pk, pk + cfg.keys_per_epoch - 1, max_epochs=1)
+    rates = scans_in_turns(
+        {"direct": solver, "pipelined": ps},
+        ("direct", "pipelined", "pipelined", "direct", "direct",
+         "pipelined"), pub, pk, 8,
+        per_epoch={"pipelined": LAUNCHES_PER_EPOCH_PIPELINED})
+    log(f"pipelined w=2^26: 8-epoch scans, giant-steps/s, direct "
+        f"{rates['direct']}, pipelined {rates['pipelined']}")
+    profiles = {name: profile_scan(s, pub, pk, epochs=4)
+                for name, s in (("direct", solver), ("pipelined", ps))}
+    if profiles["pipelined"]["streams"] < 2:
+        raise AssertionError(f"the pipelined scan ran on one stream: "
+                             f"{profiles['pipelined']}")
+    return dict(rates=rates, profiles=profiles,
+                launches_per_epoch=LAUNCHES_PER_EPOCH_PIPELINED)
+
+
+def mesh_unfused(mesh, baby, path_launches: dict) -> dict:
+    """MeshSolver over an unfused base solver (w=2^26, N=262143) in the
+    group of one, the table replicated and split into one shard (the
+    (hi, lo) all_gather route): a planted key of super-epoch 1 found
+    through each, counted as the "mesh unfused replicated" and "mesh
+    unfused sharded" paths."""
+    import torch
+
+    from bsgs_tpu_torch.models import solver as S
+    from bsgs_tpu_torch.ops import _cuda
+    from bsgs_tpu_torch.parallel import striped
+    from bsgs_tpu_torch.utils import ecpy
+
+    cfg = S.SolverConfig(w=1 << 26, n_offsets=UNFUSED_N)
+    rng = random.Random(SEED + 5)
+    out = {}
+    for label, kw in (("replicated", {}),
+                      ("sharded", dict(shard_baby_table=True))):
+        _cuda.reset_launches()
+        t0 = time.time()
+        base = S.Solver(cfg, baby=baby, device=mesh.device)
+        ms = striped.MeshSolver(base, mesh, **kw)
+        if ms.fused:
+            raise AssertionError("the mesh took the fused epoch")
+        pk = 1 << 44
+        key = pk + cfg.keys_per_epoch + rng.randrange(cfg.keys_per_epoch)
+        res = ms.solve(ecpy.mul(key), pk, pk + 3 * cfg.keys_per_epoch - 1)
+        torch.cuda.synchronize()
+        if res.key != key:
+            raise AssertionError(f"mesh unfused {label}: planted key "
+                                 f"{key:#x} not found: {res}")
+        out[label] = dict(seconds=time.time() - t0, epochs=res.epochs)
+        log(f"mesh unfused {label}: planted key {key:#x} of super-epoch "
+            f"{res.epochs - 1} in {out[label]['seconds']:.2f} s")
+        read_launches(f"mesh unfused {label}", path_launches,
+                      kernels=UNFUSED_KERNELS, epoch_folds=True)
+        del base, ms
+    return out
+
+
 def main() -> int:
     # one card: on a host with several, use only the first visible one
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -2124,6 +2495,18 @@ def main() -> int:
     mesh = mesh_of_one()
     mesh_out = dict(w26=mesh_replicated(mesh, solver, path_launches))
     torch.cuda.synchronize()
+
+    # the row-major surface, the unfused epoch at an N that no chain layout
+    # fits, the same hits from both epochs, cross-epoch pipelining, and the
+    # mesh over the unfused epoch
+    any_n = dict(rowmajor=rowmajor_ops(device))
+    any_n["unfused_w26"] = unfused_w26(baby, path_launches)
+    any_n["unfused_vs_fused"] = unfused_vs_fused(solver, baby)
+    any_n["cross_pipeline_w26"] = cross_pipeline_w26(solver, baby,
+                                                     path_launches)
+    any_n["mesh_unfused"] = mesh_unfused(mesh, baby, path_launches)
+    log(f"unfused and pipelined: {json.dumps(any_n, default=str)}")
+    torch.cuda.empty_cache()
 
     # 7. the streamed path: w=2^30, rescan positions, deferred verification
     del solver, baby

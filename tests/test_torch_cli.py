@@ -186,10 +186,14 @@ def test_cards_that_cannot_be_given_exit_2(run, flags, says):
     assert rc == 2 and says in err
 
 
-def test_chain_layout_refusal_exits_2(run):
-    rc, _, err = run("--pub", pub(5), "--pk", "1", "--pke", "ffff", "--w",
+def test_n_without_a_chain_layout_solves_unfused(run):
+    """--n-offsets 65537 at 16 jobs (4 a phase) has no chain layout
+    (solver.chain_layout): the command line solves it through the unfused
+    epoch, as the JAX command line does."""
+    rc, out, _ = run("--pub", pub(5), "--pk", "1", "--pke", "ffff", "--w",
                      "8", "--n-offsets", "65537")
-    assert rc == 2 and "unfused" in err
+    assert rc == 0 and "KEY FOUND: 0x5" in out
+    assert win_lines() == [f"{5:064x} {pub(5)}"]
 
 
 def test_offsets_that_are_no_power_of_two(run):

@@ -3,7 +3,8 @@ own joined by gloo, held against bsgs_tpu's MeshSolver at n = 2 on the
 same configuration: a replicated table (one super-epoch's decoded hit
 records, a planted key, and a forced overflow that both ranks re-run), a
 table built split over the ranks (the all_gather probe route finds a
-planted key; the owner's broadcast rows resolve lookups on both ranks). The command
+planted key, through the fused and the unfused epoch; the owner's
+broadcast rows resolve lookups on both ranks). The command
 line's worlds are tests/test_torch_distributed_cli.py. Every world gets a
 free port, an explicit rendezvous timeout (parallel/mesh.TIMEOUT) and a
 join timeout."""
@@ -170,3 +171,5 @@ def test_sharded_world_of_two_matches_jax(tmp_path):
                           shard_baby_table=True)
     want = jms.solve(ecpy.mul(solve["key"]), PK, solve["pke"])
     assert got["solve"] == _result(want) and want.key == solve["key"]
+    # the unfused epoch's (hi, lo) probe through the same route
+    assert got["solve_unfused"] == _result(want)

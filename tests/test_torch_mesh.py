@@ -156,6 +156,26 @@ def test_probe_routes_match_jax(route, n, jax_table, port_table):
     np.testing.assert_array_equal(got, whole.numpy())
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_alltoall_prefix_probe_matches_jax(n, jax_table, port_table):
+    """make_alltoall_probe, the (hi, lo) form of the all_to_all route (the
+    unfused epoch's stream), n ranks in one process, against bsgs_tpu's
+    make_alltoall_probe under shard_map."""
+    ks = list(range(1, 129)) + [int(x) for x in np.random.default_rng(
+        n).integers(300, 1 << 48, size=128)]
+    hi, lo = JF.x_prefix64(jnp.asarray(JF.to_limbs_batch(
+        [ecpy.mul(k)[0] for k in ks])))
+    jspec = JST.shard_table(jax_table, n)
+    want = _jax_route(JST.make_alltoall_probe(jspec), n, np.asarray(hi),
+                      np.asarray(lo), jnp.asarray(jspec.dense))
+    probe = ST.make_alltoall_probe(
+        [ST.shard_table(port_table, n, s) for s in range(n)])
+    got = torch.cat(probe(list(convert.from_u32(hi, "cpu").chunk(n)),
+                          list(convert.from_u32(lo, "cpu").chunk(n))))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[:128].all() and not got[128:].any()
+
+
 def test_all_to_all_overflow_comes_back_found(jax_table, port_table):
     """Every probe aimed at shard 0's rows: each rank's 256 probes find one
     destination of cap 128 (slack 0), so 128 are answered exactly (all
@@ -297,3 +317,34 @@ def test_mesh_solver_of_one_rank_is_the_single_card_solve(one_rank, solvers):
         striped.MeshSolver(base, one_rank, shard_baby_table=True)
     with pytest.raises(ValueError, match="shard_baby_table"):
         striped.MeshSolver(base, one_rank)
+
+
+def test_unfused_mesh_solver_of_one_rank(one_rank, port_table):
+    """MeshSolver over an unfused base solver, its table replicated and
+    split into one shard (make_sharded_probe, the (hi, lo) all_gather
+    route): one super-epoch's records equal the unfused Solver's, the
+    sharded prefix probe equals the whole table's, and a planted key of
+    super-epoch 1 is found either way."""
+    cfg = S.SolverConfig(fused=False, **GEOM)
+    port = S.Solver(cfg, baby=port_table, device="cpu")
+    assert not port.fused
+    pk = 1 << 21
+    pub = ecpy.mul(pk + 5 * cfg.stride)
+    q0 = ecpy.sub(pub, ecpy.mul(pk))
+    want, _ = port._collect(pub, pk, port._dispatch(q0, 0))
+    assert want
+    hi, lo = JF.x_prefix64(jnp.asarray(JF.to_limbs_batch(
+        [ecpy.mul(k)[0] for k in (1, 2, 300, 256)])))
+    hi, lo = convert.from_u32(hi, "cpu"), convert.from_u32(lo, "cpu")
+    probe = ST.make_sharded_probe(ST.shard_table(port_table, 1), one_rank)
+    assert probe(hi, lo).tolist() == [True, True, False, True]
+    assert torch.equal(probe(hi, lo), T.probe(hi, lo, port_table.dense,
+                                              htsz=HTSZ))
+    k = pk + cfg.keys_per_epoch + 777
+    for kw in ({}, dict(shard_baby_table=True)):
+        ms = striped.MeshSolver(port, one_rank, **kw)
+        assert not ms.fused and ms._phases == 1
+        got, gs = ms._collect(pub, pk, ms._dispatch(q0, 0))
+        assert got == want and gs == 17 * 2
+        res = ms.solve(ecpy.mul(k), pk, pk + 3 * cfg.keys_per_epoch)
+        assert res.key == k and res.epochs == 2

@@ -442,8 +442,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert len(mods) >= 16
     assert {"bsgs_tpu_torch.cli", "bsgs_tpu_torch.utils.codecs",
             "bsgs_tpu_torch.utils.checkpoint", "bsgs_tpu_torch.utils.native",
-            "bsgs_tpu_torch.utils.artifacts",
-            "bsgs_tpu_torch.utils.tuner"} <= set(mods)
+            "bsgs_tpu_torch.utils.artifacts", "bsgs_tpu_torch.utils.tuner",
+            "bsgs_tpu_torch.ops.field", "bsgs_tpu_torch.ops.ec",
+            "bsgs_tpu_torch.models.giant", "bsgs_tpu_torch.models.table",
+            "bsgs_tpu_torch.parallel.striped",
+            "bsgs_tpu_torch.parallel.sharded_table"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(

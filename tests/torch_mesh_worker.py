@@ -1,5 +1,6 @@
 """One rank of a world of the port's ranks on the CPU (gloo), for
-tests/test_torch_distributed.py.
+tests/test_torch_distributed.py: the replicated case, and the sharded
+case, which solves through the fused and the unfused epoch.
 
 Usage: python torch_mesh_worker.py <address> <world> <rank> <case> <dir>
 
@@ -92,6 +93,10 @@ def main():
             s = S.Solver(cfg, baby=baby, device="cpu")
             out["solve"] = solve(striped.MeshSolver(
                 s, mesh, shard_baby_table=True), p)
+            unfused = S.Solver(dataclasses.replace(cfg, fused=False),
+                               baby=baby, device="cpu")
+            out["solve_unfused"] = solve(striped.MeshSolver(
+                unfused, mesh, shard_baby_table=True), p)
         with open(os.path.join(where, f"{case}.{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
