@@ -310,8 +310,11 @@ def _spawn(argv, n: int, ids, device) -> int:
                 return failed[0] if failed[0] > 0 else 1
             if all(c == 0 for c in codes):
                 return 0
+            # the ranks still running when codes was read: one that exits
+            # after that read leaves its sentinel ready, never an empty
+            # list to wait on for ever
             multiprocessing.connection.wait(
-                [p.sentinel for p in procs if p.exitcode is None])
+                [p.sentinel for p, c in zip(procs, codes) if c is None])
     finally:
         for p in procs:
             if p.is_alive():

@@ -116,6 +116,16 @@ class Mesh:
         _all_gather_single(out, t.contiguous(), group=self.group)
         return out
 
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """Segment ``rank`` of every rank's t, concatenated along dim 0 in
+        rank order: dim 0 of t splits into world equal segments, segment j
+        going to rank j (one output tensor). Every rank's t has the same
+        shape. NCCL sends no bool: callers send masks as uint8."""
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=self.group)
+        return out
+
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max over every rank's t, in place."""
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)

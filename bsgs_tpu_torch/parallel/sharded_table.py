@@ -6,27 +6,27 @@ Counterpart of ``bsgs_tpu/parallel/sharded_table.py`` and of
 Rank s holds rows [s * bps, (s + 1) * bps) of the dense matrix,
 bps = 2^htsz / n, so n cards hold a table n times the size one could.
 ``build_sharded_table`` builds each rank's rows on its own card, and a
-lookup reads a row from the rank that owns it. A probe stream is answered
-from its (bucket, disc) keys by the all_gather route: every rank gathers
-every rank's keys (buckets and discs in one collective), answers those of
-its own rows, the answers are OR-reduced (a max over uint8), and each rank
-keeps its own segment.
+lookup reads a row from the rank that owns it.
 
-bsgs_tpu also has an all_to_all route: each key is sent to the one rank
-that owns its bucket, in segments of ``alltoall_cap`` keys a destination,
-answered there and sent back; a key that finds its segment full comes back
-found, and the host's exact verification rejects it. It moves 1/n of the
-all_gather route's keys, but whether that wins depends on the link between
-cards, which no run has measured yet; until one does, the solver takes
-the all_gather route, and the all_to_all route stays here as its tensor
-functions (route_keys, received_keys, route_back), held against
-bsgs_tpu's in the tests and on the card by chip_smoke.py.
+A probe stream is answered from its (bucket, disc) keys by one of two
+routes, each two collectives a stream (parallel/mesh.Mesh):
+- all_gather (``make_probe``): every rank gathers every rank's keys
+  (buckets and discs in one collective), answers those of its own rows,
+  the answers are OR-reduced (a max over uint8), and each rank keeps its
+  own segment;
+- all_to_all (``make_alltoall_probe_bd``): each key is sent to the one
+  rank that owns its bucket, in segments of ``alltoall_cap`` keys a
+  destination (route_keys, received_keys), answered there and sent back
+  (route_back); a key that finds its segment full comes back found, and
+  the host's exact verification rejects it. It moves 1/n of the
+  all_gather route's keys but sorts and scatters each stream; which wins
+  depends on the link between cards.
 
 Each route's local answer is the probe kernel (ops/probe_kernel.probe_rows)
-on the rank's own rows (probe_own_rows). ``*_in_process`` runs n ranks'
-shares of either route in one process with the exchanges made by hand.
-The unfused epoch probes (hi, lo) prefixes: ``make_sharded_probe`` and
-``make_alltoall_probe`` split them into keys for the two routes.
+on the rank's own rows (probe_own_rows). The unfused epoch probes (hi, lo)
+prefixes: ``make_sharded_probe`` and ``make_alltoall_probe`` split them
+into keys for the two routes. ``*_in_process`` runs n ranks' shares of
+either route in one process with the exchanges made by hand.
 """
 
 from __future__ import annotations
@@ -221,13 +221,17 @@ def route_back(answers, plan):
     return found
 
 
+def _check_rank(spec: ShardedTableSpec, mesh) -> None:
+    if spec.n_shards != mesh.world or spec.shard != mesh.rank:
+        raise ValueError(f"shard {spec.shard} of {spec.n_shards} on rank "
+                         f"{mesh.rank} of {mesh.world}")
+
+
 def make_probe(spec: ShardedTableSpec, mesh):
     """The probe (bucket, disc) -> found of this rank's equal-length key
     stream against the sharded table, through the all_gather route: two
     collectives a stream (the keys out, the answers back)."""
-    if spec.n_shards != mesh.world or spec.shard != mesh.rank:
-        raise ValueError(f"shard {spec.shard} of {spec.n_shards} on rank "
-                         f"{mesh.rank} of {mesh.world}")
+    _check_rank(spec, mesh)
 
     def probe(bucket, disc):
         m = bucket.shape[0]
@@ -240,6 +244,26 @@ def make_probe(spec: ShardedTableSpec, mesh):
     return probe
 
 
+def make_alltoall_probe_bd(spec: ShardedTableSpec, mesh, slack: float = 2.0):
+    """The probe (bucket, disc) -> found of the all_to_all route: two
+    collectives a stream (each key to the rank that owns its bucket, the
+    answers back). Every rank's stream has the same length m, so every
+    rank sends segments of the same alltoall_cap(m, world, slack) keys
+    and the exchanges match; no size is read back from the device."""
+    _check_rank(spec, mesh)
+    n, bps = mesh.world, spec.buckets_per_shard
+
+    def probe(bucket, disc):
+        cap = alltoall_cap(bucket.shape[0], n, slack)
+        send, plan = route_keys(bucket, disc, n, bps, cap)
+        found = probe_own_rows(*received_keys(mesh.all_to_all(send), n),
+                               spec)
+        answers = mesh.all_to_all(found.to(torch.uint8))
+        return route_back(answers.bool(), plan)
+
+    return probe
+
+
 def make_sharded_probe(spec: ShardedTableSpec, mesh):
     """The (hi, lo) prefix probe of the all_gather route (the unfused
     epoch's stream): each prefix's (bucket, disc) split, then make_probe's
@@ -248,10 +272,17 @@ def make_sharded_probe(spec: ShardedTableSpec, mesh):
     return lambda hi, lo: core(*T.prefix_keys(hi, lo, spec.htsz))
 
 
-def make_alltoall_probe(specs, slack: float = 2.0):
-    """The (hi, lo) prefix form of the all_to_all route, n ranks in one
-    process: probe(his, los) -> each rank's found masks, through
-    probe_all_to_all_in_process (the route is no collective yet)."""
+def make_alltoall_probe(spec: ShardedTableSpec, mesh, slack: float = 2.0):
+    """The (hi, lo) prefix probe of the all_to_all route (the unfused
+    epoch's stream): each prefix's (bucket, disc) split, then
+    make_alltoall_probe_bd's collective probe."""
+    core = make_alltoall_probe_bd(spec, mesh, slack)
+    return lambda hi, lo: core(*T.prefix_keys(hi, lo, spec.htsz))
+
+
+def make_alltoall_probe_in_process(specs, slack: float = 2.0):
+    """make_alltoall_probe of n ranks in one process: probe(his, los) ->
+    each rank's found masks, through probe_all_to_all_in_process."""
     htsz = specs[0].htsz
 
     def probe(his, los):

@@ -16,10 +16,13 @@ makes every rank re-run the super-epoch with the same larger buffer.
 
 The table is either held whole by every rank (the epoch is then exactly
 the single card's) or split by bucket range (sharded_table), when each
-probe goes through the all_gather route: by (bucket, disc) keys in the
-fused epoch (sharded_table.make_probe), by (hi, lo) prefixes in the
-unfused one (sharded_table.make_sharded_probe). Every rank probes streams
-of the same lengths, so the collectives stay matched.
+probe goes through one of its collective routes, as bsgs_tpu's
+``probe_routing`` picks it: all_gather (the default; by (bucket, disc)
+keys in the fused epoch, sharded_table.make_probe, by (hi, lo) prefixes
+in the unfused one, make_sharded_probe) or all_to_all
+(make_alltoall_probe_bd, make_alltoall_probe). Every rank probes streams
+of the same lengths, so the collectives stay matched, an overflow re-run
+included.
 """
 
 from __future__ import annotations
@@ -31,6 +34,12 @@ import torch
 from ..models import giant, solver as S
 from . import sharded_table as st
 
+# probe_routing -> (fused probe, unfused probe) of a sharded table
+ROUTES = {
+    "all_gather": (st.make_probe, st.make_sharded_probe),
+    "all_to_all": (st.make_alltoall_probe_bd, st.make_alltoall_probe),
+}
+
 
 class MeshSolver(S.Solver):
     """Drives the scan over a mesh (parallel/mesh.Mesh), adopting a base
@@ -39,11 +48,18 @@ class MeshSolver(S.Solver):
     shard_baby_table splits the dense table by bucket range over the
     ranks: a table built sharded (sharded_table.build_sharded_table) must
     be split over exactly this mesh; a table held whole is split here into
-    mesh.world shards (shard_table). Cross-epoch pipelining stays off, as
-    in bsgs_tpu: a super-epoch's hits are gathered as it ends."""
+    mesh.world shards (shard_table). probe_routing names the collective
+    route of a sharded table's probes (ROUTES); it has no effect on a
+    table held whole, as in bsgs_tpu, and a name not in ROUTES raises,
+    where bsgs_tpu takes it for all_gather. Cross-epoch pipelining stays
+    off, as in bsgs_tpu: a super-epoch's hits are gathered as it ends."""
 
     def __init__(self, base: S.Solver, mesh,
-                 shard_baby_table: bool = False):
+                 shard_baby_table: bool = False,
+                 probe_routing: str = "all_gather"):
+        if probe_routing not in ROUTES:
+            raise ValueError(f"probe_routing {probe_routing!r}: not one of "
+                             f"{sorted(ROUTES)}")
         if base.ox_pl.device != mesh.device:
             raise ValueError(f"the solver is on {base.ox_pl.device}, this "
                              f"rank on {mesh.device}")
@@ -60,6 +76,7 @@ class MeshSolver(S.Solver):
         self._phases = base._phases
         self.mesh = mesh
         self.shard_baby_table = shard_baby_table
+        self.probe_routing = probe_routing
         self._spec = None
         # the fused epoch probes (bucket, disc) keys, the unfused one
         # (hi, lo) prefixes
@@ -78,8 +95,9 @@ class MeshSolver(S.Solver):
         elif shard_baby_table:
             self._spec = st.shard_table(self.baby, mesh.world, mesh.rank)
         if self._spec is not None:
-            self._probe = (st.make_probe if self.fused
-                           else st.make_sharded_probe)(self._spec, mesh)
+            fused_probe, unfused_probe = ROUTES[probe_routing]
+            self._probe = (fused_probe if self.fused
+                           else unfused_probe)(self._spec, mesh)
 
     @property
     def _jobs_per_super(self) -> int:

@@ -163,6 +163,8 @@ LAUNCHES_PER_EPOCH_PIPELINED = {"epoch_fwd": 1, "epoch_bwd": 1,
 # probe): the epoch kernels are not among them
 UNFUSED_KERNELS = ("mont_fwd", "mont_bwd", "fermat", "add_const",
                    "probe_rows")
+# what the port's own kernels' names hold in a profiler's trace
+OWN_KERNEL_SYMBOLS = ("mont_", "add_const", "modinv", "epoch_", "probe_rows")
 
 TPU_KERNEL = {
     "epoch_fwd": "bsgs_tpu/ops/epoch_kernel.py:48",
@@ -1023,9 +1025,8 @@ def profile_build(w: int, device) -> dict:
     rows = device_rows(prof)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     launches = sum(e.count for e in rows)
-    ours = ("mont_", "add_const", "modinv", "epoch_", "probe_rows")
     own_ms = sum(e.self_device_time_total for e in rows
-                 if any(k in e.key for k in ours)) / 1e3
+                 if any(k in e.key for k in OWN_KERNEL_SYMBOLS)) / 1e3
 
     parts = {"seed row": (ec, "host_row"),
              "fill": (EK, "fill_multiples_planar"),
@@ -1068,7 +1069,7 @@ def profile_tile_advance(tile: int, device, calls: int = 8) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
+    from bsgs_tpu_torch.ops import _cuda, epoch_kernel as EK, planar as PL
     from bsgs_tpu_torch.utils import ecpy
 
     xs, ys = EK.fill_multiples_planar(ecpy.mul(1), ecpy.mul(1), tile,
@@ -1084,29 +1085,43 @@ def profile_tile_advance(tile: int, device, calls: int = 8) -> dict:
     host = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    # two warm-up steps: the tracer misses launches made just after it
-    # starts; a trace that still comes back without a device event is
-    # taken again (at most three times)
-    for attempt in range(3):
+    # two warm-up steps, and a pause once the trace is active: the tracer
+    # misses launches made just after it starts. A trace is complete when
+    # it holds every launch that the kernel wrappers counted in the active
+    # steps; one that does not is taken again (at most five times). The
+    # check after this function reads only a complete trace.
+    warmup = 2
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=2, active=calls,
+                     schedule=schedule(wait=0, warmup=warmup, active=calls,
                                        repeat=1)) as prof:
-            for i in range(2 + calls):
-                xs, ys, _, _ = EK.add_const_planar(xs, ys, cx, cy)
-                if i == 1 + calls:
+            for i in range(warmup + calls):
+                if i == warmup:
                     torch.cuda.synchronize()
+                    time.sleep(0.005)
+                    before = dict(_cuda.LAUNCHES)
+                xs, ys, _, _ = EK.add_const_planar(xs, ys, cx, cy)
+                if i == warmup + calls - 1:
+                    torch.cuda.synchronize()
+                    counted = {k: _cuda.LAUNCHES[k] - before[k]
+                               for k in _cuda.KERNELS}
                 prof.step()
         rows = device_rows(prof)
-        if rows:
+        traced = sum(e.count for e in rows
+                     if any(k in e.key for k in OWN_KERNEL_SYMBOLS))
+        if traced >= sum(counted.values()):
             break
-        log(f"tile advance [{tile} lanes]: the trace held no device event "
+        log(f"tile advance [{tile} lanes]: the trace held {traced} of the "
+            f"{sum(counted.values())} launches the wrappers counted "
             f"(attempt {attempt + 1}); profiling again")
     per = sum(e.count for e in rows) / calls
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / calls
     out = dict(tile=tile, host_ms=1e3 * host / calls,
                wall_ms=1e3 * wall / calls, device_ms=dev_ms,
                device_launches=per,
+               counted_launches=sum(counted.values()) / calls,
+               trace_attempts=attempt + 1,
                by_kernel=[dict(kernel=e.key[:100], count=e.count / calls,
                                ms=e.self_device_time_total / 1e3 / calls)
                           for e in rows])
@@ -1708,10 +1723,13 @@ def mesh_sharded(mesh, single, path_launches: dict) -> dict:
     (sharded_table.build_sharded_table: rescan positions, lookups through
     the owner's broadcast rows), equal to the single-card streamed table; a
     planted key of epoch 1 found through deferred verification with a slot
-    that survives the hint planted in epoch 0, counted as the "mesh w=2^30
-    sharded" path; then 8-epoch scans through the all_gather route beside
-    the plain Solver's on the single-card table, in turns, and a profile
-    of its epoch."""
+    that survives the hint planted in epoch 0, through the all_gather
+    route and then the all_to_all route, counted as the "mesh w=2^30
+    sharded" and "mesh w=2^30 sharded all_to_all" paths; both routes'
+    decoded records of super-epoch 0 equal; then 8-epoch scans through
+    both routes beside the plain Solver's on the single-card table, in
+    turns, and a profile, the collectives and the host waits of each
+    route's epoch."""
     import torch
 
     from bsgs_tpu_torch.models import solver as S, table as T
@@ -1740,46 +1758,87 @@ def mesh_sharded(mesh, single, path_launches: dict) -> dict:
         if baby.lookup_positions(ecpy.mul(r)[0]) != [r]:
             raise AssertionError(f"mesh lookup of baby {r}")
     base = S.Solver(cfg, baby=baby, device=mesh.device)
-    ms = striped.MeshSolver(base, mesh, shard_baby_table=True)
+    solvers = {"plain": single}
     pk = 1 << 59
     key = pk + cfg.keys_per_epoch + rng.randrange(cfg.keys_per_epoch)
     q0 = ecpy.sub(ecpy.mul(key), ecpy.mul(pk))
     pre_fp, (row, col) = plant_surviving_slot(baby, cfg, q0, 12345)
-    scans_before = stats["residue_scans"]
-    t0 = time.time()
-    res = ms.solve(ecpy.mul(key), pk, pk + 3 * cfg.keys_per_epoch - 1)
-    torch.cuda.synchronize()
-    took = time.time() - t0
-    scans = stats["residue_scans"] - scans_before
-    if res.key != key or res.epochs < 3 or scans < 1 or res.hits_checked < 2:
-        raise AssertionError(f"mesh w=2^30: planted key {key:#x}: {res}, "
-                             f"{scans} residue scans")
-    baby.dense[row, col] = T.DENSE_FILL
-    baby.pos_lo[row, col] = 0
+    solves = {}
+    for route, path in (("all_gather", "mesh w=2^30 sharded"),
+                        ("all_to_all", "mesh w=2^30 sharded all_to_all")):
+        ms = striped.MeshSolver(base, mesh, shard_baby_table=True,
+                                probe_routing=route)
+        scans_before = stats["residue_scans"]
+        t0 = time.time()
+        res = ms.solve(ecpy.mul(key), pk, pk + 3 * cfg.keys_per_epoch - 1)
+        torch.cuda.synchronize()
+        took = time.time() - t0
+        scans = stats["residue_scans"] - scans_before
+        if (res.key != key or res.epochs < 3 or scans < 1
+                or res.hits_checked < 2):
+            raise AssertionError(f"mesh w=2^30 {route}: planted key "
+                                 f"{key:#x}: {res}, {scans} residue scans")
+        log(f"mesh w=2^30 sharded, {route} route: planted key {key:#x} of "
+            f"epoch 1 found after {res.epochs} drained epochs with the slot "
+            f"planted in epoch 0 ({res.hits_checked} hits checked, {scans} "
+            f"residue scans through the broadcast rows, {took:.2f} s)")
+        read_launches(path, path_launches)  # the first counts the build
+        _cuda.reset_launches()
+        solvers[route] = ms
+        solves[route] = dict(solve_s=took, residue_scans=scans,
+                             hits_checked=res.hits_checked)
     log(f"mesh w=2^30 sharded: built over the group in {t_build:.2f} s "
         f"(peak {peak} B above what was allocated before), equal to the "
-        f"single-card table; planted key {key:#x} of epoch 1 found after "
-        f"{res.epochs} drained epochs with the slot planted in epoch 0 "
-        f"({res.hits_checked} hits checked, {scans} residue scans through "
-        f"the broadcast rows, {took:.2f} s)")
-    read_launches("mesh w=2^30 sharded", path_launches)
+        f"single-card table")
+    records = {}
+    for route in ("all_gather", "all_to_all"):
+        ms = solvers[route]
+        batch, _ = ms._collect(ecpy.mul(key), pk, ms._dispatch(q0, 0))
+        records[route] = sorted([r[0].job_base, *r[1:]] for r in batch)
+    if not records["all_gather"] or (records["all_to_all"]
+                                     != records["all_gather"]):
+        raise AssertionError(f"super-epoch 0's records by route: {records}")
+    log(f"mesh w=2^30 sharded: super-epoch 0 decodes to the same "
+        f"{len(records['all_gather'])} records through both routes "
+        f"{records['all_gather']}")
+    baby.dense[row, col] = T.DENSE_FILL
+    baby.pos_lo[row, col] = 0
     pub = ecpy.mul((1 << 200) + 12345)
-    solvers = {"plain": single, "all_gather": ms}
     for s in solvers.values():
         s.solve(pub, pk, pk + cfg.keys_per_epoch - 1, max_epochs=1)
-    rates = scans_in_turns(solvers, ("plain", "all_gather", "all_gather",
-                                     "plain", "plain", "all_gather"),
+    rates = scans_in_turns(solvers, ("plain", "all_gather", "all_to_all",
+                                     "all_to_all", "all_gather", "plain",
+                                     "plain", "all_gather", "all_to_all"),
                            pub, pk, 8)
     log(f"mesh w=2^30: 8-epoch scans, giant-steps/s, plain Solver "
-        f"{rates['plain']}, sharded all_gather {rates['all_gather']}")
-    profile_scan(ms, pub, pk, epochs=4)
-    costs = collective_costs(ms, pub, pk, 4)
-    waits = count_syncs(ms, pub, pk, epochs=8, label=" (mesh w=2^30)")
+        f"{rates['plain']}, sharded all_gather {rates['all_gather']}, "
+        f"sharded all_to_all {rates['all_to_all']}")
+    # per epoch, each of its probe streams makes two collectives and the
+    # hits one all_gather (a lookup's broadcasts are not counted here)
+    streams = 2 * cfg.phases + 1
+    expected = dict(
+        all_gather=dict(all_gather=streams + 1, all_reduce_max=streams),
+        all_to_all=dict(all_to_all=2 * streams, all_gather=1))
+    per_route = {}
+    for route in ("all_gather", "all_to_all"):
+        ms = solvers[route]
+        prof = profile_scan(ms, pub, pk, epochs=4)
+        costs = collective_costs(ms, pub, pk, 4)
+        calls = {k: n for k, n in costs["calls_per_epoch"].items()
+                 if k != "broadcast"}
+        if calls != dict(expected[route], probe=streams):
+            raise AssertionError(f"{route}: collectives per epoch {calls}, "
+                                 f"expected {expected[route]} and {streams} "
+                                 f"probes")
+        waits = count_syncs(ms, pub, pk, epochs=8,
+                            label=f" (mesh w=2^30 {route})")
+        per_route[route] = dict(profile=prof, collectives=costs,
+                                host_waits_per_epoch=waits / 8,
+                                **solves[route])
     del solvers, ms, base, baby
     torch.cuda.empty_cache()
-    return dict(build_s=t_build, build_peak=peak, solve_s=took,
-                residue_scans=scans, rates=rates, collectives=costs,
-                host_waits_per_epoch=waits / 8)
+    return dict(build_s=t_build, build_peak=peak, records=records,
+                rates=rates, routes=per_route)
 
 
 def collective_costs(ms, pub, pk: int, epochs: int) -> dict:
@@ -1802,7 +1861,7 @@ def collective_costs(ms, pub, pk: int, epochs: int) -> dict:
             return out
         return call
 
-    kinds = ("all_gather", "all_reduce_max", "broadcast")
+    kinds = ("all_gather", "all_to_all", "all_reduce_max", "broadcast")
     for kind in kinds:
         setattr(mesh, kind, timed(kind, getattr(mesh, kind)))
     probe = ms._probe
@@ -2300,10 +2359,11 @@ def cross_pipeline_w26(solver, baby, path_launches: dict) -> dict:
 
 def mesh_unfused(mesh, baby, path_launches: dict) -> dict:
     """MeshSolver over an unfused base solver (w=2^26, N=262143) in the
-    group of one, the table replicated and split into one shard (the
-    (hi, lo) all_gather route): a planted key of super-epoch 1 found
-    through each, counted as the "mesh unfused replicated" and "mesh
-    unfused sharded" paths."""
+    group of one, the table replicated, and split into one shard probed
+    by (hi, lo) prefixes through the all_gather and through the all_to_all
+    route: a planted key of super-epoch 1 found through each, counted as
+    the "mesh unfused replicated", "mesh unfused sharded" and "mesh
+    unfused sharded all_to_all" paths."""
     import torch
 
     from bsgs_tpu_torch.models import solver as S
@@ -2315,7 +2375,10 @@ def mesh_unfused(mesh, baby, path_launches: dict) -> dict:
     rng = random.Random(SEED + 5)
     out = {}
     for label, kw in (("replicated", {}),
-                      ("sharded", dict(shard_baby_table=True))):
+                      ("sharded", dict(shard_baby_table=True)),
+                      ("sharded all_to_all", dict(
+                          shard_baby_table=True,
+                          probe_routing="all_to_all"))):
         _cuda.reset_launches()
         t0 = time.time()
         base = S.Solver(cfg, baby=baby, device=mesh.device)
@@ -2633,7 +2696,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # the parallel layer at w=2^30: the table built over the group of one
-    # and scanned through the all_gather route, the 4-way partition in one
+    # and scanned through both probe routes, the 4-way partition in one
     # process, and hit indices past 2^31
     mesh_out["w30"] = mesh_sharded(mesh, solver, path_launches)
     mesh_out["partition"] = partition_w30(solver)

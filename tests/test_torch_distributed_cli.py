@@ -85,3 +85,54 @@ def test_cli_a_failed_rank_fails_the_command(tmp_path):
                    "--pk", f"{PK:x}", "--pke", f"{PK + 4096:x}",
                    "--devices", "2", "--win-file", "wins", *QUICK)
     assert rc != 0 and "a rank failed" in out
+
+
+def test_spawn_waits_on_ranks_that_exit_while_it_reads_them(monkeypatch):
+    """Ranks that exit between _spawn's read of their exit codes and its
+    wait: the wait returns at once on their sentinels, and the command
+    returns 0 (a wait on no sentinel at all would block for ever)."""
+    import threading
+    import torch.multiprocessing
+
+    from bsgs_tpu_torch import cli
+
+    fds = []
+
+    class Rank:
+        """Running at the first read of its exit code, exited (0) at
+        every later one."""
+
+        def __init__(self, target, args):
+            self.reads = 0
+            r, w = os.pipe()
+            os.write(w, b"x")
+            fds.extend((r, w))
+            self.sentinel = r
+
+        def start(self):
+            pass
+
+        @property
+        def exitcode(self):
+            self.reads += 1
+            return None if self.reads == 1 else 0
+
+        def is_alive(self):
+            return False
+
+        def join(self):
+            pass
+
+    class Context:
+        Process = Rank
+
+    monkeypatch.setattr(torch.multiprocessing, "get_context",
+                        lambda method: Context)
+    got = []
+    t = threading.Thread(target=lambda: got.append(
+        cli._spawn(["--devices", "2"], 2, None, "cpu")), daemon=True)
+    t.start()
+    t.join(10)
+    for fd in fds:
+        os.close(fd)
+    assert got == [0]

@@ -4,8 +4,10 @@ JAX sharded build on a mesh of as many CPU devices; both probe routes of n
 simulated ranks (their collectives made by hand) against the JAX routes
 under shard_map at 2, 4 and 8 devices, the overflow case included;
 check_table_fits(n_shards=) against the JAX solver's; and, in a group of
-one rank (gloo), the sharded build with its broadcast lookups and
-MeshSolver's checks. The spawned worlds of two ranks are tests/test_torch_distributed.py.
+one rank (gloo), the sharded build with its broadcast lookups,
+MeshSolver's checks, and the all_to_all route as collectives (two a
+stream) under MeshSolver(probe_routing=). The spawned worlds of two ranks
+are tests/test_torch_distributed.py.
 """
 
 import dataclasses
@@ -19,7 +21,8 @@ from jax.sharding import PartitionSpec as P
 
 from bsgs_tpu.models import solver as JS, table as JT
 from bsgs_tpu.ops import field as JF
-from bsgs_tpu.parallel import mesh as JM, sharded_table as JST
+from bsgs_tpu.parallel import (mesh as JM, sharded_table as JST,
+                               striped as JSTR)
 from bsgs_tpu.utils import tuner as JTU
 from bsgs_tpu_torch import convert
 from bsgs_tpu_torch.models import solver as S, table as T
@@ -158,9 +161,9 @@ def test_probe_routes_match_jax(route, n, jax_table, port_table):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_alltoall_prefix_probe_matches_jax(n, jax_table, port_table):
-    """make_alltoall_probe, the (hi, lo) form of the all_to_all route (the
-    unfused epoch's stream), n ranks in one process, against bsgs_tpu's
-    make_alltoall_probe under shard_map."""
+    """make_alltoall_probe_in_process, the (hi, lo) form of the all_to_all
+    route (the unfused epoch's stream), n ranks in one process, against
+    bsgs_tpu's make_alltoall_probe under shard_map."""
     ks = list(range(1, 129)) + [int(x) for x in np.random.default_rng(
         n).integers(300, 1 << 48, size=128)]
     hi, lo = JF.x_prefix64(jnp.asarray(JF.to_limbs_batch(
@@ -168,7 +171,7 @@ def test_alltoall_prefix_probe_matches_jax(n, jax_table, port_table):
     jspec = JST.shard_table(jax_table, n)
     want = _jax_route(JST.make_alltoall_probe(jspec), n, np.asarray(hi),
                       np.asarray(lo), jnp.asarray(jspec.dense))
-    probe = ST.make_alltoall_probe(
+    probe = ST.make_alltoall_probe_in_process(
         [ST.shard_table(port_table, n, s) for s in range(n)])
     got = torch.cat(probe(list(convert.from_u32(hi, "cpu").chunk(n)),
                           list(convert.from_u32(lo, "cpu").chunk(n))))
@@ -348,3 +351,85 @@ def test_unfused_mesh_solver_of_one_rank(one_rank, port_table):
         assert got == want and gs == 17 * 2
         res = ms.solve(ecpy.mul(k), pk, pk + 3 * cfg.keys_per_epoch)
         assert res.key == k and res.epochs == 2
+
+
+def _count_collectives(mesh, monkeypatch) -> list:
+    """Record the name of every collective the mesh makes from here on."""
+    calls = []
+    for kind in ("all_gather", "all_to_all", "all_reduce_max", "broadcast"):
+        def counted(*args, _fn=getattr(mesh, kind), _kind=kind):
+            calls.append(_kind)
+            return _fn(*args)
+        monkeypatch.setattr(mesh, kind, counted)
+    return calls
+
+
+def test_alltoall_probe_of_one_rank_is_two_collectives(one_rank, port_table,
+                                                       monkeypatch):
+    """make_alltoall_probe_bd and its (hi, lo) form over a group of one:
+    the whole table's probe, through two all_to_all calls a stream and
+    nothing else; a shard of another split is refused."""
+    spec = ST.shard_table(port_table, 1, 0)
+    b, d = (convert.from_u32(k, "cpu") for k in _keys(5))
+    calls = _count_collectives(one_rank, monkeypatch)
+    got = ST.make_alltoall_probe_bd(spec, one_rank)(b, d)
+    assert calls == ["all_to_all"] * 2
+    assert torch.equal(got, T.probe_keys(b, d, port_table.dense))
+    assert got[:128].all() and not got[128:].any()
+    hi, lo = JF.x_prefix64(jnp.asarray(JF.to_limbs_batch(
+        [ecpy.mul(k)[0] for k in (1, 2, 300, 256)])))
+    hi, lo = convert.from_u32(hi, "cpu"), convert.from_u32(lo, "cpu")
+    got = ST.make_alltoall_probe(spec, one_rank)(hi, lo)
+    assert got.tolist() == [True, True, False, True]
+    assert calls == ["all_to_all"] * 4
+    with pytest.raises(ValueError, match="shard 0 of 2 on rank 0 of 1"):
+        ST.make_alltoall_probe_bd(ST.shard_table(port_table, 2, 0), one_rank)
+
+
+@pytest.mark.parametrize("epoch", ["fused", "unfused"])
+def test_alltoall_mesh_solver_of_one_rank_is_the_single_card_solve(
+        epoch, one_rank, solvers, port_table, monkeypatch):
+    """MeshSolver(probe_routing="all_to_all") of one rank, the table split
+    into one shard: the single-card Solver's records of an epoch and its
+    solve, through two all_to_all calls a probe stream (five streams a
+    fused epoch of two phases, one unfused) and one all_gather of the
+    hits; over a table held whole the route has no effect."""
+    port = solvers[0] if epoch == "fused" else S.Solver(
+        S.SolverConfig(fused=False, **GEOM), baby=port_table, device="cpu")
+    cfg, pk = port.cfg, 1 << 21
+    pub = ecpy.mul(pk + 5 * cfg.stride)
+    q0 = ecpy.sub(pub, ecpy.mul(pk))
+    want, _ = port._collect(pub, pk, port._dispatch(q0, 0))
+    assert want
+    k = pk + cfg.keys_per_epoch + 777
+    want_solve = port.solve(ecpy.mul(k), pk, pk + 3 * cfg.keys_per_epoch)
+    assert want_solve.key == k
+    streams = 2 * port._phases + 1 if port.fused else 1
+    calls = _count_collectives(one_rank, monkeypatch)
+    for shard, all_to_all in ((True, 2 * streams), (False, 0)):
+        ms = striped.MeshSolver(port, one_rank, shard_baby_table=shard,
+                                probe_routing="all_to_all")
+        assert ms.probe_routing == "all_to_all" and ms.fused == port.fused
+        calls.clear()
+        got, gs = ms._collect(pub, pk, ms._dispatch(q0, 0))
+        assert got == want and gs == 17 * 2
+        assert sorted(calls) == ["all_gather"] + ["all_to_all"] * all_to_all
+        res = ms.solve(ecpy.mul(k), pk, pk + 3 * cfg.keys_per_epoch)
+        assert dataclasses.replace(res, elapsed_s=0) == dataclasses.replace(
+            want_solve, elapsed_s=0)
+
+
+def test_unknown_probe_route_raises_where_jax_takes_all_gather(one_rank,
+                                                                solvers):
+    """A deliberate difference: bsgs_tpu's MeshSolver takes any
+    probe_routing other than "all_to_all" for all_gather
+    (bsgs_tpu/parallel/striped.py:66-69, 136-139); the port's raises."""
+    port, jax_s = solvers
+    for name in ("all-to-all", "alltoall", ""):
+        with pytest.raises(ValueError, match="probe_routing"):
+            striped.MeshSolver(port, one_rank, shard_baby_table=True,
+                               probe_routing=name)
+    jms = JSTR.MeshSolver(jax_s, JM.make_mesh(2), shard_baby_table=True,
+                          probe_routing="all-to-all")
+    assert jms.probe_routing == "all-to-all"
+    assert set(striped.ROUTES) == {"all_gather", "all_to_all"}

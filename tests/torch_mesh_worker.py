@@ -1,6 +1,7 @@
 """One rank of a world of the port's ranks on the CPU (gloo), for
 tests/test_torch_distributed.py: the replicated case, and the sharded
-case, which solves through the fused and the unfused epoch.
+case, which solves through both probe routes and the fused and the
+unfused epoch, and checks Mesh.all_to_all and the all_to_all probe.
 
 Usage: python torch_mesh_worker.py <address> <world> <rank> <case> <dir>
 
@@ -21,7 +22,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from bsgs_tpu_torch import convert  # noqa: E402
-from bsgs_tpu_torch.models import solver as S  # noqa: E402
+from bsgs_tpu_torch.models import solver as S, table as T  # noqa: E402
 from bsgs_tpu_torch.parallel import (  # noqa: E402
     mesh as M, sharded_table as ST, striped)
 from bsgs_tpu_torch.utils import ecpy  # noqa: E402
@@ -39,7 +40,7 @@ def load_table(path):
 
 
 def records(ms, pub, pk):
-    """The decoded hit records of super-epoch 0."""
+    """The decoded hit records of super-epoch 0, and its giant steps."""
     q0 = ecpy.sub(pub, ecpy.mul(pk))
     batch, gs = ms._collect(pub, pk, ms._dispatch(q0, 0))
     return sorted([r[0].job_base, *r[1:]] for r in batch), gs
@@ -50,6 +51,37 @@ def solve(ms, p):
                    max_epochs=p.get("max_epochs"))
     return dict(key=res.key, giant_steps=res.giant_steps, epochs=res.epochs,
                 hits_checked=res.hits_checked)
+
+
+def route_checks(mesh, baby, p):
+    """This rank's share of the all_to_all checks: Mesh.all_to_all of
+    rank-stamped tensors (1-D int32, 2-D uint8); its share of the probe
+    keys through make_alltoall_probe_bd and through
+    probe_all_to_all_in_process (every shard's rows built here); and the
+    flood keys through make_alltoall_probe_bd at slack 0."""
+    n, r = mesh.world, mesh.rank
+    flat = torch.arange(3 * n, dtype=torch.int32) + 100 * r
+    rows = (torch.arange(6 * n, dtype=torch.uint8) + 50 * r).view(2 * n, 3)
+    spec = ST.spec_from_presharded(baby)
+    specs = [ST.ShardedTableSpec(
+        baby.htsz, baby.window, n, s, T.build_shard_rows(
+            baby.w, baby.htsz, n, s, window=baby.window, device="cpu")[0],
+        spec.shard_entries) for s in range(n)]
+
+    def share(name):
+        keys = [convert.from_u32(np.array(k, dtype=np.uint32), "cpu")
+                for k in p[name]]
+        return [list(k.chunk(n)) for k in keys]
+
+    (bs, ds), (fb, fd) = share("keys"), share("flood_keys")
+    return dict(
+        all_to_all=mesh.all_to_all(flat).tolist(),
+        all_to_all_rows=mesh.all_to_all(rows).tolist(),
+        probe=ST.make_alltoall_probe_bd(spec, mesh)(bs[r], ds[r]).tolist(),
+        probe_in_process=ST.probe_all_to_all_in_process(
+            bs, ds, specs)[r].tolist(),
+        probe_slack0=ST.make_alltoall_probe_bd(spec, mesh, slack=0.0)(
+            fb[r], fd[r]).tolist())
 
 
 def main():
@@ -86,17 +118,26 @@ def main():
             out["redispatched"] = redispatched
         else:
             baby = ST.build_sharded_table(cfg, mesh)
-            out["rank"] = [baby.shard, baby.n_table_shards,
-                           list(baby.dense.shape)]
+            own = dict(shard=[baby.shard, baby.n_table_shards,
+                              list(baby.dense.shape)])
             out["lookups"] = [baby.lookup_positions(ecpy.mul(r)[0])
                               for r in p["lookups"]]
-            s = S.Solver(cfg, baby=baby, device="cpu")
+            bases = dict(
+                fused=S.Solver(cfg, baby=baby, device="cpu"),
+                unfused=S.Solver(dataclasses.replace(cfg, fused=False),
+                                 baby=baby, device="cpu"))
             out["solve"] = solve(striped.MeshSolver(
-                s, mesh, shard_baby_table=True), p)
-            unfused = S.Solver(dataclasses.replace(cfg, fused=False),
-                               baby=baby, device="cpu")
+                bases["fused"], mesh, shard_baby_table=True), p)
             out["solve_unfused"] = solve(striped.MeshSolver(
-                unfused, mesh, shard_baby_table=True), p)
+                bases["unfused"], mesh, shard_baby_table=True), p)
+            for name, base in bases.items():
+                ms = striped.MeshSolver(base, mesh, shard_baby_table=True,
+                                        probe_routing="all_to_all")
+                recs, gs = records(ms, ecpy.mul(p["records_key"]), p["pk"])
+                out[f"all_to_all_{name}"] = dict(records=recs, gs=gs,
+                                                 solve=solve(ms, p))
+            own.update(route_checks(mesh, baby, p))
+            out["rank"] = own
         with open(os.path.join(where, f"{case}.{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
