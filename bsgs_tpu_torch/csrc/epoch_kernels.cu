@@ -9,13 +9,20 @@
 // entry returns cudaGetLastError() so a refused launch raises in the
 // wrapper.
 //
-// What bounds them: a 256-bit modular multiply is about 206 32-bit integer
-// instructions (136 for the mad.lo/mad.hi product rows, the rest for the
-// two folds and the canonical step), and an element moves 64 bytes per
-// (16, M) int32 limb plane it reads or writes. The card does about 5
-// integer instructions per byte of memory traffic, so epoch_bwd (6
-// multiplies per pair) and the inversion (about 16,800 instructions per
-// element, modinv.cuh) are bound by instructions, and epoch_fwd, mont_fwd,
+// What bounds them: an SM has two 32-bit integer pipes of 64 lanes, the
+// multiplier pipe (IMAD forms) and the other (adds, logic, shifts,
+// selects), and its schedulers issue 128 lanes a clock over both; an
+// element moves 64 bytes per (16, M) int32 limb plane it reads or writes.
+// A kernel's floor is the largest of three: its products on the
+// multiplier pipe (an IMAD.WIDE at two issues; the moves and adds that
+// ptxas also places there could run on the other pipe), its integer
+// instructions over both pipes, and its bytes. As nvcc 12.9 compiles
+// field.cuh (chip_smoke.py reads the counts from the build): mul_mod is
+// 159 integer instructions, 74 of them IMAD.WIDE products (148 issues);
+// sqr_mod 140, 93 issues; add_mod and sub_mod 17-19 on the other pipe.
+// So epoch_bwd (778 multiplier issues and 1,047 instructions a pair) is
+// bound by the multiplier pipe, the inversion (modinv.cuh, about 16,800
+// instructions an element) by integer issue, and epoch_fwd, mont_fwd,
 // mont_bwd and add_const (1-4 multiplies against 2-5 planes) by bytes.
 // Every value stays in registers; each input plane is read once and each
 // output plane written once.
@@ -62,12 +69,12 @@ __global__ void __launch_bounds__(kBlock)
   const int jb = r / W;
   const long long base = (long long)jb * C * W + (r - jb * W);
   const long long tn = (long long)T * N;
-  const Fe mx = bsgs::fe_load(cx, T, t);
+  const Fe mx = bsgs::fe_load(cx + t, 4ull * T);
   const Fe one = bsgs::fe_one();
   Fe run = one;
   for (int c = 0; c < C; ++c) {
     const long long col = base + (long long)c * W;
-    Fe d = bsgs::sub_mod(bsgs::fe_load(ox, N, col), mx);
+    Fe d = bsgs::sub_mod(bsgs::fe_load(ox + col, 4ull * N), mx);
     d = bsgs::fe_select(bsgs::fe_is_zero(d), one, d);
     bsgs::fe_store(pre, tn, (long long)t * N + col, run);
     run = bsgs::mul_mod(run, d);
@@ -75,11 +82,39 @@ __global__ void __launch_bounds__(kBlock)
   bsgs::fe_store(tot, threads, g, run);
 }
 
+// p[i * step / 4] = row[i] for the 8 rows of a key plane, the address
+// walked by adds as in fe_load.
+__device__ __forceinline__ void store_rows(int32_t* p, uint64_t step,
+                                           const uint32_t (&row)[8]) {
+  char* a = (char*)p;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    *(int32_t*)a = (int32_t)row[i];
+    a += step;
+  }
+}
+
 // Replaces bsgs_tpu/ops/epoch_kernel.py:_bwd_kernel. Thread g walks the
 // chain of epoch_fwd_kernel's thread g backwards from its inverted total:
 // each pair's 1/d, both landing X's (M + O and M - O share it), their
-// probe keys and the exact flag. Bound: instructions (6 multiplies per
-// pair).
+// probe keys and the exact flag.
+//
+// Bound: the multiplier pipe. A pair needs 4 multiplies, 2 squarings and 7
+// adds or subtracts: 778 multiplier-pipe issues and 1,047 integer
+// instructions, so a phase of T=4 jobs x N=2^18 offsets takes at least
+// 0.049 ms on an H100 (0.033 ms of issue over both pipes, 0.041 ms of
+// bytes). With schoolbook rows for every product, squares included, the
+// same walk needs 894 issues and 2,159 instructions a pair: each 32-bit
+// product is an IMAD and an IADD3.X that carries it. What the design does
+// about it: the products are pair products (mul_mod, sqr_mod in field.cuh:
+// one IMAD.WIDE.U32.X a 64-bit product, its carry in a predicate), which
+// halves the instructions, and a square takes 36 products in place of 64,
+// which takes 13% off the multiplier pipe's issues; the loads walk their
+// rows by adds, with byte steps from the host, so no address lands on the
+// multiplier pipe (fe_load, store_rows). One job a thread: 2 or 4 jobs a
+// thread, which share the offsets' loads, ran slower on an H100 (more
+// registers, fewer warps); chip_smoke.py --epoch-bwd times them beside
+// this kernel.
 __global__ void __launch_bounds__(kBlock)
     epoch_bwd_kernel(const int32_t* __restrict__ ox,
                      const int32_t* __restrict__ oy,
@@ -88,49 +123,38 @@ __global__ void __launch_bounds__(kBlock)
                      const int32_t* __restrict__ pre,
                      const int32_t* __restrict__ itot,
                      int32_t* __restrict__ out, int T, int N, int C, int W,
-                     int htsz) {
-  const int nb = N / (C * W);
-  const long long threads = (long long)T * nb * W;
+                     int htsz, uint64_t step_n, uint64_t step_tn) {
+  const long long chains = (long long)(N / (C * W)) * W;  // of one job
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= threads) return;
-  const int t = (int)(g / ((long long)nb * W));
-  const int r = (int)(g - (long long)t * nb * W);
-  const int jb = r / W;
-  const long long base = (long long)jb * C * W + (r - jb * W);
-  const long long tn = (long long)T * N;
-  const Fe mx = bsgs::fe_load(cx, T, t);
-  const Fe my = bsgs::fe_load(cy, T, t);
+  if (g >= T * chains) return;
+  const int t = (int)(g / chains);
+  const long long r = g - t * chains;
+  const long long jb = r / W;
+  const Fe mx = bsgs::fe_load(cx + t, 4ull * T);
+  const Fe my = bsgs::fe_load(cy + t, 4ull * T);
   const Fe one = bsgs::fe_one();
-  Fe run = bsgs::fe_load(itot, threads, g);
-  for (int i = 0; i < C; ++i) {
-    const long long col = base + (long long)(C - 1 - i) * W;
+  Fe run = bsgs::fe_load(itot + g, 4ull * T * chains);
+  long long col = jb * C * W + (r - jb * W) + (long long)(C - 1) * W;
+  for (int i = 0; i < C; ++i, col -= W) {
     const long long pc = (long long)t * N + col;
-    const Fe oxv = bsgs::fe_load(ox, N, col);
-    const Fe oyv = bsgs::fe_load(oy, N, col);
+    const Fe oxv = bsgs::fe_load(ox + col, step_n);
+    const Fe oyv = bsgs::fe_load(oy + col, step_n);
     Fe d = bsgs::sub_mod(oxv, mx);
     const bool exact = bsgs::fe_is_zero(d);
     d = bsgs::fe_select(exact, one, d);
-    const Fe inv = bsgs::mul_mod(run, bsgs::fe_load(pre, tn, pc));
+    const Fe inv = bsgs::mul_mod(run, bsgs::fe_load(pre + pc, step_tn));
     run = bsgs::mul_mod(run, d);
     // x(M + O): lambda = (Oy - My) / (Ox - Mx)
     const Fe lp = bsgs::mul_mod(bsgs::sub_mod(oyv, my), inv);
-    const Fe xp =
-        bsgs::sub_mod(bsgs::sub_mod(bsgs::sqr_mod(lp), mx), oxv);
+    const Fe xp = bsgs::sub_mod(bsgs::sub_mod(bsgs::sqr_mod(lp), mx), oxv);
     // x(M - O): only the square of -(Oy + My) / (Ox - Mx) enters
     const Fe lm = bsgs::mul_mod(bsgs::add_mod(oyv, my), inv);
-    const Fe xm =
-        bsgs::sub_mod(bsgs::sub_mod(bsgs::sqr_mod(lm), mx), oxv);
+    const Fe xm = bsgs::sub_mod(bsgs::sub_mod(bsgs::sqr_mod(lm), mx), oxv);
     uint32_t bp, dp, bm, dm;
     bsgs::probe_key(xp, htsz, bp, dp);
     bsgs::probe_key(xm, htsz, bm, dm);
-    out[0 * tn + pc] = (int32_t)bp;
-    out[1 * tn + pc] = (int32_t)dp;
-    out[2 * tn + pc] = (int32_t)bm;
-    out[3 * tn + pc] = (int32_t)dm;
-    out[4 * tn + pc] = exact ? 1 : 0;
-    out[5 * tn + pc] = 0;
-    out[6 * tn + pc] = 0;
-    out[7 * tn + pc] = 0;
+    const uint32_t row[8] = {bp, dp, bm, dm, exact ? 1u : 0u, 0u, 0u, 0u};
+    store_rows(out + pc, step_tn, row);
   }
 }
 
@@ -146,7 +170,7 @@ __global__ void __launch_bounds__(kBlock)
                   int M) {
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = g < M;
-  Fe a = bsgs::fe_load(x, M, live ? g : 0);
+  Fe a = bsgs::fe_load(x + (live ? g : 0), 4ull * M);
   if (!live) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) a.v[i] = 0;
@@ -169,15 +193,15 @@ __global__ void __launch_bounds__(kBlock)
                      int M) {
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= M) return;
-  const Fe cxv = bsgs::fe_load(cx, 1, 0);
-  const Fe cyv = bsgs::fe_load(cy, 1, 0);
-  const Fe x = bsgs::fe_load(xs, M, g);
-  const Fe y = bsgs::fe_load(ys, M, g);
+  const Fe cxv = bsgs::fe_load(cx, 4);
+  const Fe cyv = bsgs::fe_load(cy, 4);
+  const Fe x = bsgs::fe_load(xs + g, 4ull * M);
+  const Fe y = bsgs::fe_load(ys + g, 4ull * M);
   const bool dbl = bsgs::fe_is_zero(bsgs::sub_mod(cxv, x));
   const Fe x2 = bsgs::sqr_mod(x);
   const Fe num = dbl ? bsgs::add_mod(bsgs::add_mod(x2, x2), x2)
                      : bsgs::sub_mod(cyv, y);
-  const Fe lam = bsgs::mul_mod(num, bsgs::fe_load(inv, M, g));
+  const Fe lam = bsgs::mul_mod(num, bsgs::fe_load(inv + g, 4ull * M));
   // on doubling lanes cx == x, so x + cx == 2x either way
   const Fe xr = bsgs::sub_mod(bsgs::sqr_mod(lam), bsgs::add_mod(x, cxv));
   const Fe yr = bsgs::sub_mod(bsgs::mul_mod(lam, bsgs::sub_mod(x, xr)), y);
@@ -270,7 +294,7 @@ int bsgs_epoch_bwd(const void* ox, const void* oy, const void* cx,
   epoch_bwd_kernel<<<grid_for(threads), kBlock, 0, (cudaStream_t)stream>>>(
       (const int32_t*)ox, (const int32_t*)oy, (const int32_t*)cx,
       (const int32_t*)cy, (const int32_t*)pre, (const int32_t*)itot,
-      (int32_t*)out, T, N, C, W, htsz);
+      (int32_t*)out, T, N, C, W, htsz, 4ull * N, 4ull * T * N);
   return (int)cudaGetLastError();
 }
 

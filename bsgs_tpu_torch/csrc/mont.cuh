@@ -51,8 +51,8 @@
 // and the backward pass about 3.1, against 1 and 2, so the kernels sit
 // between the two floors. What the split buys is threads: a 2^18-lane tile
 // runs 131,072 of them (8 warps on each scheduler) in place of 16,384.
-// Registers: 64 at two positions a thread (no spills; chip_smoke.py reads
-// them from the build); the scan's shared memory is 1 KiB per segment
+// Registers: 58-76 at two positions a thread (no spills; chip_smoke.py
+// reads them from the build); the scan's shared memory is 1 KiB per segment
 // (8 u32 limbs x 32 lanes), 16 KiB a block at most.
 #pragma once
 
@@ -89,11 +89,11 @@ __device__ __forceinline__ Fe mont_elem(const int32_t* __restrict__ v,
                                         const Fe& cx, long long M,
                                         long long col) {
   if (col >= M) return fe_one();
-  const Fe x = fe_load(v, M, col);
+  const Fe x = fe_load(v + col, 4ull * M);
   if (!kPoints) return x;
   const Fe d = sub_mod(cx, x);
   if (!fe_is_zero(d)) return d;
-  const Fe y = fe_load(ys, M, col);
+  const Fe y = fe_load(ys + col, 4ull * M);
   return add_mod(y, y);
 }
 
@@ -128,7 +128,7 @@ __global__ void __launch_bounds__(kMontLanes * kMontMaxSegments)
   __shared__ MontScratch sm;
   const MontPlace p = mont_place(L, W);
   Fe cx;
-  if (kPoints) cx = fe_load(cxp, 1, 0);
+  if (kPoints) cx = fe_load(cxp, 4);
   Fe loc[L];
 #pragma unroll
   for (int i = 0; i < L; ++i)
@@ -183,13 +183,13 @@ __global__ void __launch_bounds__(kMontLanes * kMontMaxSegments)
   __shared__ MontScratch sm;
   const MontPlace p = mont_place(L, W);
   Fe cx;
-  if (kPoints) cx = fe_load(cxp, 1, 0);
+  if (kPoints) cx = fe_load(cxp, 4);
   Fe e[L], pr[L];
 #pragma unroll
   for (int i = 0; i < L; ++i) {
     const long long col = p.base + (long long)(p.s * L + i) * W;
     e[i] = mont_elem<kPoints>(v, ys, cx, M, col);
-    pr[i] = col < M ? fe_load(pre, M, col) : fe_one();
+    pr[i] = col < M ? fe_load(pre + col, 4ull * M) : fe_one();
   }
   Fe acc = e[0];
 #pragma unroll
@@ -198,7 +198,7 @@ __global__ void __launch_bounds__(kMontLanes * kMontMaxSegments)
   sm_put(sm, p.s, p.lane, acc);
   __syncthreads();
   acc = p.s + 1 < p.S ? sm_get(sm, p.s + 1, p.lane)
-                      : fe_load(itot, T, p.chain);
+                      : fe_load(itot + p.chain, 4ull * T);
   __syncthreads();
   sm_put(sm, p.s, p.lane, acc);
   __syncthreads();

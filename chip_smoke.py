@@ -1,15 +1,28 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's two paths once on one GPU.
 
-    python3 chip_smoke.py            # the whole run below
-    python3 chip_smoke.py --builds   # only the two builds and a residue
-                                     # scan, timed, to compare two trees
+    python3 chip_smoke.py             # the whole run below
+    python3 chip_smoke.py --builds    # only the two builds and a residue
+                                      # scan, timed, to compare two trees
+    python3 chip_smoke.py --epoch-bwd # only the build, phase 1 and
+                                      # epoch_bwd's study (the parent's
+                                      # kernel and the sweep), as JSON
 
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 nonzero:
 
-1. build the CUDA kernels of bsgs_tpu_torch/csrc with nvcc (sm_90a), and
-   read the Montgomery kernels' registers and spills from the build;
+1. build the CUDA kernels of bsgs_tpu_torch/csrc with nvcc (sm_90a) and,
+   beside them, a side library of one kernel per field operation
+   (SIDE_SRC); read from the build each field operation's SASS by pipe and
+   the inversion's, which every bound counts (the products on the
+   multiplier pipe, an IMAD.WIDE at WIDE_ISSUES, which pipe_probe checks),
+   and the Montgomery kernels' and epoch_bwd's registers and spills; hold
+   the field operations against Python's integers on edge values, and
+   epoch_bwd against its plain version at both paths' shapes, T=32 and
+   narrow ones. With --epoch-bwd the side library also holds the study
+   (STUDY_SRC): the parent's epoch_bwd (schoolbook multiplies) and the
+   layouts of the sweep, held to the same and timed in turns against the
+   pipe-counted bound;
 2. run each of the six epoch and table kernels and its plain PyTorch
    version on the card at the main path's shapes and require bit-identical
    outputs, timing both; hold the inversion kernel at 2,048, 16,384 and
@@ -111,27 +124,14 @@ from pathlib import Path
 
 SEED = 20261016
 # The card's published peaks (H100 SXM data sheet): HBM3 bandwidth, and the
-# 32-bit integer instruction rate of 132 SMs x 64 INT32 lanes x 1.98 GHz.
+# two 32-bit integer pipes of 132 SMs at 1.98 GHz. The multiplier pipe
+# (IMAD forms; the bounds charge it the products alone, an IMAD.WIDE at
+# WIDE_ISSUES) and the other integer pipe (adds, logic, shifts, selects,
+# compares) each take 64 lanes an SM a clock; the SM's 4 schedulers issue
+# 128 lanes a clock over both.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# 32-bit integer instructions per field operation in csrc/field.cuh:
-# mul_mod = 8 schoolbook rows of 17 + the two folds and the canonical step;
-# add_mod / sub_mod = a 9-instruction chain, a second chain, an 8-way select.
-OPS_MUL = 206
-OPS_ADD = 26
-# The inversion (csrc/modinv.cuh), per batch of 30 division steps: 21 a
-# step and 290 for the two matrix applications and the loop's test, as
-# nvcc 12.8 compiles the loop (compiled_batch_ops reads the built library
-# and the run fails if the count differs); once per inversion, the limb
-# conversions and the final normalisation. The batches are counted from the run's own inputs. Its
-# instructions are spread over the integer pipe (logic, add, shift) and the
-# multiplier pipe (IMAD, which also takes moves, adds and shifts by a
-# constant), 64 lanes per SM each, so its bound is the rate of both, which
-# is what 4 schedulers x 32 lanes per SM can start; the multiply chains of
-# the other kernels run on the one pipe that INT32_OPS_PER_S counts.
-OPS_INV_BATCH = 30 * 21 + 290
-OPS_INV_ONCE = 290
-INV_OPS_PER_S = 2 * INT32_OPS_PER_S
+MUL_PIPE_PER_S = 132 * 64 * 1.98e9
+INT_ISSUE_PER_S = 2 * MUL_PIPE_PER_S
 P_INT = 2**256 - 2**32 - 977
 # cycles of the spin kernel that cuda_ms queues launches behind
 QUEUE_CYCLES = 20_000_000
@@ -237,29 +237,17 @@ def plant_edge_lanes(v):
     return v
 
 
-def inversion_bound(m: int, batches):
-    """(operations, bytes) of inverting m lanes whose division steps need
-    the given batches per lane: what this input needs, not the cap."""
-    return (int(batches.sum()) * OPS_INV_BATCH + m * OPS_INV_ONCE,
-            2 * 64 * m)
-
-
-def build_kernels():
-    """Build and load the kernels; returns (seconds, shared libraries)."""
+def build_kernels(side):
+    """Build and load the kernels and the side library (both nvcc runs in
+    flight at once); returns (seconds, shared libraries, compiled costs)."""
     from bsgs_tpu_torch.ops import _cuda
 
     t0 = time.time()
     libs = _cuda.build(verbose=True)
     _cuda._load()
+    side.load()
     took = time.time() - t0
-    loop = compiled_batch_ops(libs)
-    if loop != OPS_INV_BATCH:
-        raise AssertionError(
-            f"the inversion's batch loop compiled to {loop} instructions; "
-            f"its bound counts {OPS_INV_BATCH}")
-    log(f"sass: one batch of the inversion is {loop} instructions as "
-        f"compiled, the count its bound uses")
-    return took, libs
+    return took, libs, compiled_costs(libs, side)
 
 
 def mont_resources(libs) -> dict:
@@ -292,31 +280,45 @@ def mont_resources(libs) -> dict:
     return found
 
 
-def compiled_batch_ops(libs) -> int:
-    """The SASS instructions of the inversion kernel's one loop (a batch
-    of 30 division steps, unrolled, and its matrix applications), from
-    cuobjdump -sass of the built library: the span of its backward
-    branch."""
-    from bsgs_tpu_torch.ops import _cuda
-
+def compiled_costs(libs, side) -> dict:
+    """What the bounds count, read from the build: each field operation's
+    instructions by pipe (field_op_counts), and the inversion kernel's, as
+    its loop (a batch of 30 division steps, unrolled, with its matrix
+    applications: the span of its backward branch) and the rest (the limb
+    conversions and the final normalisation, once an element)."""
+    probe = pipe_probe(side)
+    costs = field_op_counts(side)
     lib = next(p for p in libs if p.name.startswith("libepoch_kernels"))
-    exe = Path(_cuda._nvcc()).with_name("cuobjdump")  # the toolkit's own
-    out = subprocess.run([str(exe), "-sass", str(lib)],
-                         capture_output=True, text=True, timeout=300,
-                         check=True)
-    body = out.stdout.partition("modinv_kernel")[2].partition("Function :")[0]
-    instr = [(int(a, 16), t) for a, t in re.findall(
-        r"^\s*/\*([0-9a-f]{4,})\*/\s+(\S[^;]*);", body, flags=re.M)]
-    loop = 0
-    for addr, text in instr:
-        target = re.search(r"\bBRA\b.*\b0x([0-9a-f]+)", text)
-        if target and int(target.group(1), 16) <= addr:
-            loop = max(loop, sum(int(target.group(1), 16) <= a <= addr
-                                 for a, _ in instr))
-    return loop
+    body = next(b for n, b in sass_functions(lib).items()
+                if "modinv_kernel" in n)
+    loop = pipe_split(loop_ops(body))
+    whole = pipe_split(sass_ops(sass_instructions(body)))
+    costs["inv_batch"] = loop
+    costs["inv_once"] = {k: whole[k] - loop[k] for k in loop}
+    costs["pipe_probe"] = probe
+    log(f"sass: one batch of the inversion is "
+        f"{loop['int_total'] + loop['other']} "
+        f"instructions as compiled ({loop}), the rest of the kernel "
+        f"{costs['inv_once']}")
+    return costs
 
 
-def check_inversion(device, widths) -> list:
+def work(costs: dict, n: int, **per) -> dict:
+    """The need of n items that each make per[op] of the field operations
+    of costs: multiplier-pipe issues and integer instructions in all."""
+    return {key: n * sum(k * costs[op][key] for op, k in per.items())
+            for key in ("mul_issues", "int_total")}
+
+
+def inversion_work(costs: dict, m: int, batches) -> dict:
+    """The need of inverting m lanes whose division steps need the given
+    batches per lane: what this input needs, not the cap."""
+    b = int(batches.sum())
+    return {key: b * costs["inv_batch"][key] + m * costs["inv_once"][key]
+            for key in ("mul_issues", "int_total")}
+
+
+def check_inversion(device, widths, costs: dict) -> list:
     """The inversion kernel alone at several widths, edge values planted:
     bit-identical to the exponentiation (fermat_plain) and to the plain
     version of its own algorithm (which also says how many batches each
@@ -353,22 +355,23 @@ def check_inversion(device, widths) -> list:
             if not bool(one[nonzero].all()) or int(nonzero.sum()) != m - 1:
                 raise AssertionError("inversion: x * inv(x) != 1")
         ms = cuda_ms(lambda: EK.fermat(x), reps=20)
-        ops, nbytes = inversion_bound(m, batches)
-        bound_ms = bound(ops, nbytes, INV_OPS_PER_S)[0]
+        bound_ms, bound_by = bound(inversion_work(costs, m, batches),
+                                   2 * 64 * m)
         out.append(dict(m=m, ms=ms, bound_ms=bound_ms,
                         batches_max=int(batches.max()),
                         batches_mean=float(batches.double().mean())))
         log(f"kernel fermat (division steps), m={m}: bit-identical to "
             f"a^(p-2) and to its own plain version, 0 -> 0"
             f"{', x * inv(x) == 1 on every nonzero lane' * (m == max(widths))}"
-            f"; {ms:.4f} ms (bound {bound_ms:.4f} ms by operations); batches "
+            f"; {ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}); batches "
             f"needed: {out[-1]['batches_mean']:.2f} mean, "
             f"{out[-1]['batches_max']} max")
     return out
 
 
 def check_kernels(device, label: str, htsz: int, m_tab: int,
-                  time_trees: bool, T: int = 4, N: int = 1 << 18):
+                  time_trees: bool, costs: dict, T: int = 4,
+                  N: int = 1 << 18):
     """Each kernel against its plain version at one path's shapes: one
     epoch phase (T=4 centers x N offsets) with the path's bucket bits, the
     inversion of that phase's chain totals (unfolded), and one table pass
@@ -414,28 +417,30 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
                              "of its algorithm")
     torch.cuda.synchronize()
 
-    # name: (kernel, plain version, int32 instructions, field elements read
-    # and written, other bytes moved: the key plane and the x3 prefixes)
+    # name: (kernel, plain version, the field operations' need (work),
+    # field elements read and written, other bytes moved: the key plane and
+    # the x3 prefixes)
     cases = {
         "epoch_fwd": (
             lambda: EK.epoch_fwd(ox, cx, chunk_c=C, lanes_w=W),
             lambda: EK.epoch_fwd_plain(ox, cx, chunk_c=C, lanes_w=W),
-            T * N * (OPS_ADD + OPS_MUL), N + T + T * N + m_tot, 0),
+            work(costs, T * N, mul=1, sub=1), N + T + T * N + m_tot, 0),
         "epoch_bwd": (
             lambda: EK.epoch_bwd(ox, oy, cx, cy, pre, itot, htsz=htsz,
                                  chunk_c=C, lanes_w=W),
             lambda: EK.epoch_bwd_plain(ox, oy, cx, cy, pre, itot, htsz=htsz,
                                        chunk_c=C, lanes_w=W),
-            T * N * (6 * OPS_MUL + 7 * OPS_ADD),
+            work(costs, T * N, mul=4, sqr=2, add=1, sub=6),
             2 * N + 2 * T + T * N + m_tot, 8 * T * N * 4),
         "fermat": (
             lambda: EK.fermat(v_fermat),
             lambda: EK.fermat_plain(v_fermat),
-            inversion_bound(m_fermat, batches)[0], 2 * m_fermat, 0),
+            inversion_work(costs, m_fermat, batches), 2 * m_fermat, 0),
         "add_const": (
             lambda: EK.add_const(xs, ys, inv, ccx, ccy),
             lambda: EK.add_const_plain(xs, ys, inv, ccx, ccy),
-            m_tab * (4 * OPS_MUL + 6 * OPS_ADD), 5 * m_tab + 2,
+            work(costs, m_tab, mul=2, sqr=2, add=1, sub=5),
+            5 * m_tab + 2,
             2 * m_tab * 4),
     }
     shapes = {"epoch_fwd": f"T={T}, N={N}", "epoch_bwd": f"T={T}, N={N}",
@@ -462,9 +467,8 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
         # bound_ms: the planes as the kernels take them, 16 int32 words
         # (64 B) per element; bound_ms_packed: the function's own floor,
         # 32 B per element
-        rate = INV_OPS_PER_S if name == "fermat" else INT32_OPS_PER_S
-        bound_ms, bound_by = bound(ops, 64 * elems + other, rate)
-        packed_ms, packed_by = bound(ops, 32 * elems + other, rate)
+        bound_ms, bound_by = bound(ops, 64 * elems + other)
+        packed_ms, packed_by = bound(ops, 32 * elems + other)
         records[name] = dict(
             name=name, route="cuda",
             source="bsgs_tpu_torch/csrc/epoch_kernels.cu",
@@ -530,32 +534,39 @@ def tile_points(rng, m: int, device):
     return xs, ys, cx, cy
 
 
-def mont_work(m: int, chunk_c: int, backward: bool, points: bool,
-              doublings: int = 0) -> tuple:
-    """(int32 instructions, field elements moved) of one Montgomery pass
-    over m lanes in chains of chunk_c: the function's own work, a multiply
-    per element forward and two backward; forward reads v and writes pre
-    and the totals, backward reads v, pre and the inverted totals and
-    writes the inverses. The points entry reads xs in place of v, ys only
-    on the doubling lanes, and the step's x column, and adds a sub_mod per
+def mont_work(costs: dict, m: int, chunk_c: int, backward: bool,
+              points: bool, doublings: int = 0) -> tuple:
+    """(need, field elements moved) of one Montgomery pass over m lanes in
+    chains of chunk_c: the function's own work, a multiply per element
+    forward and two backward; forward reads v and writes pre and the
+    totals, backward reads v, pre and the inverted totals and writes the
+    inverses. The points entry reads xs in place of v, ys only on the
+    doubling lanes, and the step's x column, and adds a sub_mod per
     element (and an add_mod per doubling lane)."""
-    ops = m * (2 if backward else 1) * OPS_MUL
+    need = work(costs, m, mul=2 if backward else 1)
     elems = (3 if backward else 2) * m + -(-m // chunk_c)
     if points:
-        ops += (m + doublings) * OPS_ADD
+        extra = work(costs, 1, sub=m, add=doublings)
+        need = {k: need[k] + extra[k] for k in need}
         elems += doublings + 1
-    return ops, elems
+    return need, elems
 
 
-def bound(ops: int, nbytes: int, ops_per_s: float = INT32_OPS_PER_S):
-    """(ms, "operations" or "bytes"): the larger of the two floors, the
-    instructions at ops_per_s and the bytes at the memory's rate."""
-    op_s, byte_s = ops / ops_per_s, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(op_s, byte_s), ("operations" if op_s >= byte_s
-                                     else "bytes")
+def bound(need: dict, nbytes: int) -> tuple:
+    """(ms, by): the least time the card could take for the work, the
+    largest of three floors: the multiplier pipe's issues
+    (need["mul_issues"]) at MUL_PIPE_PER_S, all integer instructions
+    (need["int_total"]) at INT_ISSUE_PER_S, and nbytes at the memory's
+    rate. by names the floor that binds: "multiplier pipe", "integer
+    issue" (both "operations") or "bytes"."""
+    floors = {"multiplier pipe": need["mul_issues"] / MUL_PIPE_PER_S,
+              "integer issue": need["int_total"] / INT_ISSUE_PER_S,
+              "bytes": nbytes / HBM_BYTES_PER_S}
+    by = max(floors, key=floors.get)
+    return 1e3 * floors[by], by
 
 
-def check_mont(device, m: int, label: str) -> dict:
+def check_mont(device, m: int, label: str, costs: dict) -> dict:
     """The two redesigned Montgomery kernels at one tile width, both
     entries (the points entry the build runs, and the plane entry of the
     inversion's recursion), at the tile chain length: bit-identical to the
@@ -625,10 +636,10 @@ def check_mont(device, m: int, label: str) -> dict:
         plane_ms = cuda_ms(
             (lambda: EK.mont_bwd(den, vpre, vitot, **kw)) if backward
             else (lambda: EK.mont_fwd(den, **kw)), reps=20)
-        ops, elems = mont_work(m, C, backward, True, dbl)
+        ops, elems = mont_work(costs, m, C, backward, True, dbl)
         bound_ms, bound_by = bound(ops, 64 * elems)
         packed_ms, packed_by = bound(ops, 32 * elems)
-        plane_ops, plane_elems = mont_work(m, C, backward, False)
+        plane_ops, plane_elems = mont_work(costs, m, C, backward, False)
         records[name] = dict(
             name=name, route="cuda", source="bsgs_tpu_torch/csrc/mont.cuh",
             replaces=TPU_KERNEL[name], launches=0, max_abs_err=0, ms=ms,
@@ -700,6 +711,832 @@ def sweep_mont(device, m: int, label: str) -> list:
             f"totals "
             f"{inv:.4f} ms, backward {bwd:.4f} ms, whole {whole:.4f} ms")
     torch.cuda.synchronize()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The field operations as compiled. The side library below is built beside
+# the package's: one kernel per field operation, whose SASS less the
+# baseline kernel's gives the operation's compiled count by pipe (what
+# every bound counts) and which is held against Python's integers on edge
+# values; and a probe of the multiplier pipe's rates.
+
+SIDE_SRC = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+#include "field.cuh"
+using bsgs::Fe;
+
+__device__ __forceinline__ Fe side_ld(const uint4* p, long long g) {
+  const uint4 a = p[2 * g], b = p[2 * g + 1];
+  Fe r;
+  r.v[0] = a.x; r.v[1] = a.y; r.v[2] = a.z; r.v[3] = a.w;
+  r.v[4] = b.x; r.v[5] = b.y; r.v[6] = b.z; r.v[7] = b.w;
+  return r;
+}
+
+#define OP_KERNEL(name, expr)                                              \
+  extern "C" __global__ void name(const uint4* pa, const uint4* pb,        \
+                                  uint4* po, int m) {                      \
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;  \
+    if (g >= m) return;                                                    \
+    const Fe a = side_ld(pa, g), b = side_ld(pb, g);                       \
+    const Fe r = expr;                                                     \
+    po[2 * g] = make_uint4(r.v[0], r.v[1], r.v[2], r.v[3]);                \
+    po[2 * g + 1] = make_uint4(r.v[4], r.v[5], r.v[6], r.v[7]);            \
+  }
+OP_KERNEL(op_base, bsgs::fe_select(a.v[0] == b.v[1], a, b))
+OP_KERNEL(op_mul, bsgs::mul_mod(a, b))
+OP_KERNEL(op_sqr, bsgs::sqr_mod(a))
+OP_KERNEL(op_add, bsgs::add_mod(a, b))
+OP_KERNEL(op_sub, bsgs::sub_mod(a, b))
+
+// 8 independent chains of mad.lo.u32 (IMAD) or mad.wide.u32 (IMAD.WIDE)
+extern "C" __global__ void __launch_bounds__(128)
+    probe_pipe(uint32_t* o, int iters, uint32_t y, int wide) {
+  uint32_t x[8];
+  uint64_t z[8];
+  for (int k = 0; k < 8; ++k) x[k] = threadIdx.x + k, z[k] = x[k];
+  if (wide) {
+    for (int it = 0; it < iters; ++it)
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        asm volatile("mad.wide.u32 %0, %1, %2, %0;"
+                     : "+l"(z[k % 8]) : "r"((uint32_t)z[k % 8]), "r"(y));
+  } else {
+    for (int it = 0; it < iters; ++it)
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        asm volatile("mad.lo.u32 %0, %0, %1, %1;" : "+r"(x[k % 8]) : "r"(y));
+  }
+  uint32_t r = 0;
+  for (int k = 0; k < 8; ++k)
+    r ^= x[k] ^ (uint32_t)z[k] ^ (uint32_t)(z[k] >> 32);
+  o[blockIdx.x * blockDim.x + threadIdx.x] = r;
+}
+
+// which: 0 mul, 1 sqr, 2 add, 3 sub (SIDE_OPS)
+extern "C" int side_op(int which, const void* a, const void* b, void* o,
+                       int m, void* stream) {
+  void (*const ks[])(const uint4*, const uint4*, uint4*, int) = {
+      op_mul, op_sqr, op_add, op_sub};
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+  ks[which]<<<(m + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      (const uint4*)a, (const uint4*)b, (uint4*)o, m);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int side_probe(void* o, int blocks, int iters, int wide,
+                          void* stream) {
+  probe_pipe<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)o, iters, 12345u, wide);
+  return (int)cudaGetLastError();
+}
+"""
+
+# epoch_bwd's study (python3 chip_smoke.py --epoch-bwd), appended to
+# SIDE_SRC in that mode only: the parent's kernel (one thread a chain, every
+# product by the schoolbook rows that field.cuh's mul_mod used to be,
+# squares as multiplies, limb pairs joined by a shift: "rows"), to time the
+# kernel against in turns; the layouts of its sweep; and the schoolbook
+# multiply as a field operation of its own (rows_op).
+STUDY_SRC = r"""
+namespace parent {
+
+__device__ __forceinline__ Fe fe_load(const int32_t* __restrict__ plane,
+                                      long long stride, long long col) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint32_t lo = (uint32_t)plane[(2 * i) * stride + col];
+    uint32_t hi = (uint32_t)plane[(2 * i + 1) * stride + col];
+    r.v[i] = lo | (hi << 16);
+  }
+  return r;
+}
+
+// One schoolbook row: t[0..8] += a * b[0..7] (t[8] enters as 0 or as the
+// running top limb; the row sum never overflows 9 limbs).
+__device__ __forceinline__ void mul_row(uint32_t* t, uint32_t a,
+                                        const Fe& b) {
+  asm("mad.lo.cc.u32  %0, %9, %10, %0;\n\t"
+      "madc.lo.cc.u32 %1, %9, %11, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+      "madc.lo.cc.u32 %3, %9, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, %9, %14, %4;\n\t"
+      "madc.lo.cc.u32 %5, %9, %15, %5;\n\t"
+      "madc.lo.cc.u32 %6, %9, %16, %6;\n\t"
+      "madc.lo.cc.u32 %7, %9, %17, %7;\n\t"
+      "addc.u32       %8, %8, 0;\n\t"
+      "mad.hi.cc.u32  %1, %9, %10, %1;\n\t"
+      "madc.hi.cc.u32 %2, %9, %11, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+      "madc.hi.cc.u32 %4, %9, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %9, %14, %5;\n\t"
+      "madc.hi.cc.u32 %6, %9, %15, %6;\n\t"
+      "madc.hi.cc.u32 %7, %9, %16, %7;\n\t"
+      "madc.hi.u32    %8, %9, %17, %8;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8])
+      : "r"(a), FE_IN(b));
+}
+
+// 512-bit product t[0..15] -> canonical a*b mod p, folding twice by
+// 2^256 = 2^32 + 977.
+__device__ __forceinline__ Fe reduce_512(const uint32_t* t) {
+  // s[0..8] = lo + hi * 977
+  uint32_t s[10];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = t[i];
+  s[8] = 0;
+  s[9] = 0;
+  const uint32_t k = 977u;
+  asm("mad.lo.cc.u32  %0, %9, %17, %0;\n\t"
+      "madc.lo.cc.u32 %1, %10, %17, %1;\n\t"
+      "madc.lo.cc.u32 %2, %11, %17, %2;\n\t"
+      "madc.lo.cc.u32 %3, %12, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %13, %17, %4;\n\t"
+      "madc.lo.cc.u32 %5, %14, %17, %5;\n\t"
+      "madc.lo.cc.u32 %6, %15, %17, %6;\n\t"
+      "madc.lo.cc.u32 %7, %16, %17, %7;\n\t"
+      "addc.u32       %8, %8, 0;\n\t"
+      "mad.hi.cc.u32  %1, %9, %17, %1;\n\t"
+      "madc.hi.cc.u32 %2, %10, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %17, %3;\n\t"
+      "madc.hi.cc.u32 %4, %12, %17, %4;\n\t"
+      "madc.hi.cc.u32 %5, %13, %17, %5;\n\t"
+      "madc.hi.cc.u32 %6, %14, %17, %6;\n\t"
+      "madc.hi.cc.u32 %7, %15, %17, %7;\n\t"
+      "madc.hi.u32    %8, %16, %17, %8;"
+      : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]),
+        "+r"(s[5]), "+r"(s[6]), "+r"(s[7]), "+r"(s[8])
+      : "r"(t[8]), "r"(t[9]), "r"(t[10]), "r"(t[11]), "r"(t[12]),
+        "r"(t[13]), "r"(t[14]), "r"(t[15]), "r"(k));
+  // s[1..9] += hi (the 2^32 part of the fold)
+  asm("add.cc.u32  %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32    %8, 0, 0;"
+      : "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]), "+r"(s[5]),
+        "+r"(s[6]), "+r"(s[7]), "+r"(s[8]), "=r"(s[9])
+      : "r"(t[8]), "r"(t[9]), "r"(t[10]), "r"(t[11]), "r"(t[12]),
+        "r"(t[13]), "r"(t[14]), "r"(t[15]));
+  // second fold: top = s8 + s9 * 2^32 (< 2^34) times 2^32 + 977
+  uint64_t m = (uint64_t)s[8] * 977u;
+  uint64_t v1 = (m >> 32) + (uint64_t)s[9] * 977u + s[8];
+  uint32_t x0 = (uint32_t)m;
+  uint32_t x1 = (uint32_t)v1;
+  uint32_t x2 = (uint32_t)(v1 >> 32) + s[9];
+  Fe lo, r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) lo.v[i] = s[i];
+  uint32_t c = bsgs::fe_add_small(r, lo, x0, x1, x2);
+  // c == 1 leaves r below 2^67, so adding 2^256 mod p cannot carry again;
+  // after that r < 2^256 < 2p and one conditional subtraction is exact
+  bsgs::fe_add_small(r, r, 977u * c, c, 0u);
+  return bsgs::fe_canonical(r, 0u);
+}
+
+__device__ __forceinline__ Fe mul_mod(const Fe& a, const Fe& b) {
+  uint32_t t[17];
+#pragma unroll
+  for (int i = 0; i < 17; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mul_row(t + i, a.v[i], b);
+  return reduce_512(t);
+}
+
+}  // namespace parent
+
+OP_KERNEL(op_mul_rows, parent::mul_mod(a, b))
+
+extern "C" int rows_op(const void* a, const void* b, void* o, int m,
+                       void* stream) {
+  op_mul_rows<<<(m + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      (const uint4*)a, (const uint4*)b, (uint4*)o, m);
+  return (int)cudaGetLastError();
+}
+
+// epoch_bwd as the parent built it
+__global__ void __launch_bounds__(128)
+    rows_epoch_bwd_kernel(const int32_t* __restrict__ ox,
+                          const int32_t* __restrict__ oy,
+                          const int32_t* __restrict__ cx,
+                          const int32_t* __restrict__ cy,
+                          const int32_t* __restrict__ pre,
+                          const int32_t* __restrict__ itot,
+                          int32_t* __restrict__ out, int T, int N, int C,
+                          int W, int htsz) {
+  const int nb = N / (C * W);
+  const long long threads = (long long)T * nb * W;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= threads) return;
+  const int t = (int)(g / ((long long)nb * W));
+  const int r = (int)(g - (long long)t * nb * W);
+  const int jb = r / W;
+  const long long base = (long long)jb * C * W + (r - jb * W);
+  const long long tn = (long long)T * N;
+  const Fe mx = parent::fe_load(cx, T, t);
+  const Fe my = parent::fe_load(cy, T, t);
+  const Fe one = bsgs::fe_one();
+  Fe run = parent::fe_load(itot, threads, g);
+  for (int i = 0; i < C; ++i) {
+    const long long col = base + (long long)(C - 1 - i) * W;
+    const long long pc = (long long)t * N + col;
+    const Fe oxv = parent::fe_load(ox, N, col);
+    const Fe oyv = parent::fe_load(oy, N, col);
+    Fe d = bsgs::sub_mod(oxv, mx);
+    const bool exact = bsgs::fe_is_zero(d);
+    d = bsgs::fe_select(exact, one, d);
+    const Fe inv = parent::mul_mod(run, parent::fe_load(pre, tn, pc));
+    run = parent::mul_mod(run, d);
+    const Fe lp = parent::mul_mod(bsgs::sub_mod(oyv, my), inv);
+    const Fe xp =
+        bsgs::sub_mod(bsgs::sub_mod(parent::mul_mod(lp, lp), mx), oxv);
+    const Fe lm = parent::mul_mod(bsgs::add_mod(oyv, my), inv);
+    const Fe xm =
+        bsgs::sub_mod(bsgs::sub_mod(parent::mul_mod(lm, lm), mx), oxv);
+    uint32_t bp, dp, bm, dm;
+    bsgs::probe_key(xp, htsz, bp, dp);
+    bsgs::probe_key(xm, htsz, bm, dm);
+    out[0 * tn + pc] = (int32_t)bp;
+    out[1 * tn + pc] = (int32_t)dp;
+    out[2 * tn + pc] = (int32_t)bm;
+    out[3 * tn + pc] = (int32_t)dm;
+    out[4 * tn + pc] = exact ? 1 : 0;
+    out[5 * tn + pc] = 0;
+    out[6 * tn + pc] = 0;
+    out[7 * tn + pc] = 0;
+  }
+}
+
+// The layouts the sweep measures beside the package's kernel (one job a
+// thread): K jobs of the phase a thread, which load each offset once for
+// the K walks and interleave their multiplies; a job past T (K not
+// dividing T) repeats job T - 1 and stores nothing. And two halves of the
+// package's kernel, to see where its time goes: kMode 1 the arithmetic
+// alone (the inputs made in registers), kMode 2 the loads and stores alone.
+template <int K, int kMode>
+__global__ void __launch_bounds__(128)
+    layout_epoch_bwd_kernel(const int32_t* __restrict__ ox,
+                            const int32_t* __restrict__ oy,
+                            const int32_t* __restrict__ cx,
+                            const int32_t* __restrict__ cy,
+                            const int32_t* __restrict__ pre,
+                            const int32_t* __restrict__ itot,
+                            int32_t* __restrict__ out, int T, int N, int C,
+                            int W, int htsz, uint64_t step_n,
+                            uint64_t step_tn) {
+  const long long chains = (long long)(N / (C * W)) * W;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= (T + K - 1) / K * chains) return;
+  const int t0 = (int)(g / chains) * K;
+  const long long r = g - (long long)(t0 / K) * chains;
+  const long long jb = r / W;
+  Fe mx[K], my[K], run[K];
+  for (int k = 0; k < K; ++k) {
+    const int t = min(t0 + k, T - 1);
+    mx[k] = bsgs::fe_load(cx + t, 4ull * T);
+    my[k] = bsgs::fe_load(cy + t, 4ull * T);
+    run[k] = bsgs::fe_load(itot + t * chains + r, 4ull * T * chains);
+  }
+  const Fe one = bsgs::fe_one();
+  Fe oxv = mx[0], oyv = my[0], prv = run[0];
+  long long col = jb * C * W + (r - jb * W) + (long long)(C - 1) * W;
+  for (int i = 0; i < C; ++i, col -= W) {
+    if (kMode == 1) {
+      for (int j = 0; j < 8; ++j) {
+        oxv.v[j] =
+            __funnelshift_l(oxv.v[j], oyv.v[(j + 1) & 7], 3) & 0x7FFFFFFF;
+        oyv.v[j] ^= prv.v[j] + (uint32_t)col;
+        prv.v[j] = (prv.v[j] * 5u) & 0x7FFFFFFF;
+      }
+    } else {
+      oxv = bsgs::fe_load(ox + col, step_n);
+      oyv = bsgs::fe_load(oy + col, step_n);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const long long pc = (long long)min(t0 + k, T - 1) * N + col;
+      if (kMode != 1) prv = bsgs::fe_load(pre + pc, step_tn);
+      uint32_t row[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      if (kMode == 2) {
+        row[0] = oxv.v[0] ^ prv.v[1];
+        row[1] = oyv.v[2] ^ prv.v[3];
+        row[2] = oxv.v[4] + oyv.v[5] + prv.v[6];
+        row[3] = oxv.v[7] ^ oyv.v[1] ^ prv.v[0];
+      } else {
+        Fe d = bsgs::sub_mod(oxv, mx[k]);
+        const bool exact = bsgs::fe_is_zero(d);
+        d = bsgs::fe_select(exact, one, d);
+        const Fe inv = bsgs::mul_mod(run[k], prv);
+        run[k] = bsgs::mul_mod(run[k], d);
+        const Fe lp = bsgs::mul_mod(bsgs::sub_mod(oyv, my[k]), inv);
+        const Fe xp =
+            bsgs::sub_mod(bsgs::sub_mod(bsgs::sqr_mod(lp), mx[k]), oxv);
+        const Fe lm = bsgs::mul_mod(bsgs::add_mod(oyv, my[k]), inv);
+        const Fe xm =
+            bsgs::sub_mod(bsgs::sub_mod(bsgs::sqr_mod(lm), mx[k]), oxv);
+        bsgs::probe_key(xp, htsz, row[0], row[1]);
+        bsgs::probe_key(xm, htsz, row[2], row[3]);
+        row[4] = exact ? 1u : 0u;
+      }
+      if (t0 + k >= T) continue;
+      char* a = (char*)(out + pc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j, a += step_tn) *(int32_t*)a = (int32_t)row[j];
+    }
+  }
+}
+
+// layout: 2 or 4 jobs a thread; 5 the arithmetic alone, 6 the memory alone
+extern "C" int layout_epoch_bwd(int layout, const void* ox, const void* oy,
+                                const void* cx, const void* cy,
+                                const void* pre, const void* itot, void* out,
+                                int T, int N, int C, int W, int htsz,
+                                void* stream) {
+  const int K = layout == 2 || layout == 4 ? layout : 1;
+  const long long threads = (long long)(T + K - 1) / K * (N / (C * W)) * W;
+  const auto kernel = layout == 2   ? layout_epoch_bwd_kernel<2, 0>
+                      : layout == 4 ? layout_epoch_bwd_kernel<4, 0>
+                      : layout == 5 ? layout_epoch_bwd_kernel<1, 1>
+                      : layout == 6 ? layout_epoch_bwd_kernel<1, 2>
+                                    : nullptr;
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)((threads + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)ox, (const int32_t*)oy, (const int32_t*)cx,
+      (const int32_t*)cy, (const int32_t*)pre, (const int32_t*)itot,
+      (int32_t*)out, T, N, C, W, htsz, 4ull * N, 4ull * T * N);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rows_epoch_bwd(const void* ox, const void* oy,
+                              const void* cx, const void* cy,
+                              const void* pre, const void* itot, void* out,
+                              int T, int N, int C, int W, int htsz,
+                              void* stream) {
+  const long long threads = (long long)T * (N / (C * W)) * W;
+  rows_epoch_bwd_kernel<<<(unsigned)((threads + 127) / 128), 128, 0,
+                          (cudaStream_t)stream>>>(
+      (const int32_t*)ox, (const int32_t*)oy, (const int32_t*)cx,
+      (const int32_t*)cy, (const int32_t*)pre, (const int32_t*)itot,
+      (int32_t*)out, T, N, C, W, htsz);
+  return (int)cudaGetLastError();
+}
+"""
+
+# the field operations of SIDE_SRC, in side_op's order, with their values
+# as Python integers; the study adds the schoolbook multiply ("mul_rows",
+# rows_op)
+SIDE_OPS = {"mul": lambda x, y: x * y, "sqr": lambda x, y: x * x,
+            "add": lambda x, y: x + y, "sub": lambda x, y: x - y}
+# SASS opcodes that issue on neither integer pipe: memory, control, uniform
+# datapath, barriers
+NON_INT_OPS = ("LDG", "STG", "LDS", "STS", "LDC", "ULDC", "LDL", "STL", "S2R",
+               "S2UR", "CS2R", "EXIT", "BRA", "BSSY", "BSYNC", "CALL", "RET",
+               "NOP", "BAR", "WARPSYNC", "UMOV", "UIADD3", "UIMAD", "ULEA",
+               "ULOP3", "USHF", "USEL", "UISETP", "UPLOP3", "UPRMT")
+# An IMAD.WIDE writes a 64-bit result: every bound charges it two issues of
+# the multiplier pipe, whose 32-bit multiply-add rate is 64 lanes an SM a
+# clock. pipe_probe measures the rates of IMAD and IMAD.WIDE and fails if
+# their ratio leaves WIDE_RATIO (2.49 on an H100 at 700 W: the charge of 2
+# keeps the bounds a floor).
+WIDE_ISSUES = 2
+WIDE_RATIO = (1.9, 3.0)
+
+
+class SideLib:
+    """Build the side library (SIDE_SRC over csrc/field.cuh, and STUDY_SRC
+    with study) with nvcc into a temporary directory, started at once so
+    that it builds while the package's sources do; .load() waits for it and
+    loads it."""
+
+    def __init__(self, study: bool = False):
+        from bsgs_tpu_torch.ops import _cuda
+
+        self.study = study
+        self.dir = tempfile.TemporaryDirectory()
+        src = Path(self.dir.name) / "side.cu"
+        src.write_text(SIDE_SRC + (STUDY_SRC if study else ""))
+        self.path = Path(self.dir.name) / "libside.so"
+        self.proc = subprocess.Popen(
+            [_cuda._nvcc(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
+             "-shared", "-Xcompiler", "-fPIC", "-I", str(_cuda.CSRC), "-o",
+             str(self.path), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lib = None
+
+    def load(self):
+        import ctypes
+
+        if self.lib is None:
+            log_text, _ = self.proc.communicate()
+            if self.proc.returncode:
+                raise RuntimeError(f"nvcc failed on the side library:\n"
+                                   f"{log_text}")
+            lib = ctypes.CDLL(str(self.path))
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.side_op.argtypes = [I, P, P, P, I, P]
+            lib.side_probe.argtypes = [P, I, I, I, P]
+            fns = [lib.side_op, lib.side_probe]
+            if self.study:
+                lib.rows_epoch_bwd.argtypes = [P] * 7 + [I] * 5 + [P]
+                lib.layout_epoch_bwd.argtypes = [I] + [P] * 7 + [I] * 5 + [P]
+                lib.rows_op.argtypes = [P, P, P, I, P]
+                fns += [lib.rows_epoch_bwd, lib.layout_epoch_bwd, lib.rows_op]
+            for fn in fns:
+                fn.restype = I
+            self.lib = lib
+        return self.lib
+
+
+def sass_functions(path) -> dict:
+    """{function name: its SASS} of a built library (cuobjdump -sass)."""
+    from bsgs_tpu_torch.ops import _cuda
+
+    exe = Path(_cuda._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(exe), "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", out)
+    return {parts[i]: parts[i + 1] for i in range(1, len(parts) - 1, 2)}
+
+
+def sass_instructions(body: str) -> list:
+    """[(address, opcode, operands)] of a function's SASS, predicates
+    dropped."""
+    return [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);",
+        body, flags=re.M)]
+
+
+def is_product(op: str, operands: str) -> bool:
+    """Whether an instruction multiplies: an IMAD form that is not a move,
+    shift or add by name (IMAD.MOV, IMAD.SHL, IMAD.IADD) and whose two
+    multiplicands are neither RZ nor a power of two (IMAD.X R, R, 0x1, R
+    adds with a carry; IMAD.U32 R, R, 0x10000, RZ and IMAD.WIDE R, R, 0x4,
+    R shift). ptxas puts such moves and adds on the multiplier pipe, but
+    the other pipe could run them: the bounds count them as integer
+    instructions only."""
+    if not op.startswith("IMAD") or op.split(".")[1:2] in (
+            ["MOV"], ["SHL"], ["IADD"]):
+        return False
+    args = [a.strip() for a in operands.split(",")][1:]
+    if args and re.fullmatch(r"U?P[T0-9]", args[0]):
+        args = args[1:]  # the carry-out predicate
+    for a in args[:2]:
+        a = a.lstrip("-~|").split(".")[0]
+        if a == "RZ":
+            return False
+        if a.startswith("0x") and int(a, 16) & (int(a, 16) - 1) == 0:
+            return False
+    return True
+
+
+def sass_ops(instructions) -> list:
+    """[(opcode, is_product)] of [(address, opcode, operands)]."""
+    return [(op, is_product(op, rest)) for _, op, rest in instructions]
+
+
+def pipe_split(ops) -> dict:
+    """Instructions by pipe, from [(opcode, is_product)]: imad (every IMAD
+    form, as ptxas places them), products (those that multiply) and
+    products_wide (the IMAD.WIDE among them), mul_issues (what the bounds
+    charge the multiplier pipe: the products, an IMAD.WIDE at WIDE_ISSUES),
+    alu (the other integer and logic instructions), other (memory, control,
+    uniform datapath), int_total = imad + alu."""
+    c = collections.Counter(ops)
+    imad = sum(n for (op, _), n in c.items() if op.startswith("IMAD"))
+    products = sum(n for (op, prod), n in c.items() if prod)
+    wide = sum(n for (op, prod), n in c.items()
+               if prod and op.startswith("IMAD.WIDE"))
+    other = sum(n for (op, _), n in c.items()
+                if op.split(".")[0] in NON_INT_OPS)
+    alu = sum(c.values()) - imad - other
+    return dict(imad=imad, products=products, products_wide=wide,
+                mul_issues=products + (WIDE_ISSUES - 1) * wide, alu=alu,
+                other=other, int_total=imad + alu)
+
+
+def loop_ops(body: str) -> list:
+    """[(opcode, is_product)] of a function's widest loop: the span of its
+    widest backward branch."""
+    instr = sass_instructions(body)
+    lo, hi = 0, -1
+    for addr, op, rest in instr:
+        target = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and target:
+            start = int(target.group(1), 16)
+            if start <= addr and addr - start > hi - lo:
+                lo, hi = start, addr
+    return sass_ops([i for i in instr if lo <= i[0] <= hi])
+
+
+def pipe_probe(side) -> dict:
+    """The multiplier pipe's rate for IMAD and for IMAD.WIDE, from 8
+    independent chains a thread on every SM; fails if their ratio leaves
+    WIDE_RATIO, the range in which the bounds' charge of WIDE_ISSUES an
+    IMAD.WIDE is a floor."""
+    import torch
+
+    lib = side.load()
+    blocks, iters = 132 * 16, 256
+    out = torch.empty(blocks * 128, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for wide in (0, 1):
+        run = lambda: lib.side_probe(out.data_ptr(), blocks, iters, wide,
+                                     stream)
+        if run():
+            raise RuntimeError("side_probe launch failed")
+        ms = cuda_ms(run, reps=5)
+        rates["imad_wide" if wide else "imad"] = (
+            blocks * 128 * iters * 32 / (ms * 1e-3))
+    ratio = rates["imad"] / rates["imad_wide"]
+    log(f"pipe probe: IMAD {rates['imad'] / 1e12:.2f} T/s, IMAD.WIDE "
+        f"{rates['imad_wide'] / 1e12:.2f} T/s, ratio {ratio:.3f} (the bounds "
+        f"charge an IMAD.WIDE {WIDE_ISSUES} issues at "
+        f"{MUL_PIPE_PER_S / 1e12:.2f} T/s; allowed {WIDE_RATIO})")
+    if not WIDE_RATIO[0] <= ratio <= WIDE_RATIO[1]:
+        raise AssertionError(f"IMAD / IMAD.WIDE rate ratio {ratio:.3f} "
+                             f"outside {WIDE_RATIO}")
+    return dict(imad_per_s=rates["imad"], imad_wide_per_s=rates["imad_wide"],
+                ratio=ratio)
+
+
+def field_op_counts(side) -> dict:
+    """Each field operation's compiled instructions by pipe: its kernel's
+    SASS less the baseline kernel's (the same loads and stores)."""
+    funcs = sass_functions(side.path)
+
+    def ops(name):
+        return collections.Counter(sass_ops(sass_instructions(funcs[name])))
+
+    base = ops("op_base")
+    out = {}
+    for name in list(SIDE_OPS) + (["mul_rows"] if side.study else []):
+        # ops the baseline has more of (its select) are not taken off
+        out[name] = pipe_split(list((ops(f"op_{name}") - base).elements()))
+    log(f"field ops as compiled (SASS less the baseline's): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def check_field_ops(side) -> None:
+    """The side library's field operations against Python's integers, on
+    random values and edge values (0, 1, 2, p-1, p-2, 2^255, values whose
+    16-bit limbs are all 0xFFFF: 2^256 - 1, which is not canonical, and
+    p + 1 and 2^256 - 2^32 to either side of p): every result canonical
+    and right."""
+    import numpy as np
+    import torch
+
+    lib = side.load()
+    rng = np.random.default_rng(SEED + 13)
+    m = 4096
+    edge = [0, 1, 2, P_INT - 1, P_INT - 2, 1 << 255, (1 << 256) - 1,
+            P_INT + 1, (1 << 256) - (1 << 32), 0xFFFF, (1 << 128) - 1]
+    a = [int.from_bytes(rng.bytes(32), "little") % P_INT for _ in range(m)]
+    b = [int.from_bytes(rng.bytes(32), "little") % P_INT for _ in range(m)]
+    for i, x in enumerate(edge):
+        for j, y in enumerate(edge):
+            a[i * len(edge) + j], b[i * len(edge) + j] = x, y
+
+    def dev(vals):
+        raw = b"".join(v.to_bytes(32, "little") for v in vals)
+        return torch.frombuffer(bytearray(raw), dtype=torch.int32).cuda()
+
+    da, db = dev(a), dev(b)
+    out = torch.empty_like(da)
+    stream = torch.cuda.current_stream().cuda_stream
+    runs = {name: (lambda w=which: lib.side_op(
+        w, da.data_ptr(), db.data_ptr(), out.data_ptr(), m, stream), fn)
+        for which, (name, fn) in enumerate(SIDE_OPS.items())}
+    if side.study:
+        runs["mul_rows"] = (lambda: lib.rows_op(
+            da.data_ptr(), db.data_ptr(), out.data_ptr(), m, stream),
+            SIDE_OPS["mul"])
+    for name, (run, fn) in runs.items():
+        if run():
+            raise RuntimeError(f"side op {name} launch failed")
+        raw = out.cpu().numpy().tobytes()
+        got = [int.from_bytes(raw[32 * i:32 * i + 32], "little")
+               for i in range(m)]
+        # add and sub take canonical inputs only
+        lanes = [i for i in range(m) if name not in ("add", "sub")
+                 or (a[i] < P_INT and b[i] < P_INT)]
+        bad = [i for i in lanes if got[i] != fn(a[i], b[i]) % P_INT]
+        if bad:
+            i = bad[0]
+            raise AssertionError(f"field op {name}({a[i]:#x}, {b[i]:#x}) = "
+                                 f"{got[i]:#x}")
+    log(f"field ops ({', '.join(runs)}) right on {m} lanes, "
+        f"{len(edge) ** 2} of them edge pairs")
+
+
+def bwd_resources(libs, side) -> dict:
+    """Registers and spills of the epoch_bwd kernel and, in the study, of
+    the parent's kernel and the K-jobs layouts, from cuobjdump -res-usage;
+    the run fails if the package's kernel spills (local memory or a
+    stack)."""
+    from bsgs_tpu_torch.ops import _cuda
+
+    lib = next(p for p in libs if p.name.startswith("libepoch_kernels"))
+    exe = Path(_cuda._nvcc()).with_name("cuobjdump")
+    found = {}
+    for path in (lib, side.path):
+        out = subprocess.run([str(exe), "-res-usage", str(path)],
+                             capture_output=True, text=True, timeout=300,
+                             check=True).stdout
+        for name, body in re.findall(
+                r"Function (\S*epoch_bwd_kernel\S*):\s*\n\s*([^\n]*)", out):
+            layout = re.search(r"layout_epoch_bwd_kernelILi(\d)ELi0E", name)
+            key = ("rows" if "rows_epoch_bwd" in name
+                   else f"K={layout.group(1)}" if layout
+                   else None if "layout_" in name else "package")
+            if key:
+                found[key] = dict((n, int(v)) for n, v in re.findall(
+                    r"(REG|STACK|SHARED|LOCAL):(\d+)", body))
+    log(f"resources: epoch_bwd kernels {found}")
+    if found["package"]["LOCAL"] or found["package"]["STACK"]:
+        raise AssertionError(f"epoch_bwd spills: {found['package']}")
+    return found
+
+
+def bwd_counts(libs, side, costs: dict) -> dict:
+    """Per pair, by pipe: the function's need (4 multiplies, 2 squarings, 1
+    add and 6 subtracts at the compiled counts of field.cuh's operations;
+    in the study also "rows_need", at the schoolbook multiply's, squares as
+    multiplies), and the compiled loop of the package's epoch_bwd (in the
+    study also of the parent's kernel and of the K-jobs layouts, their loop
+    over K)."""
+    lib = next(p for p in libs if p.name.startswith("libepoch_kernels"))
+    out = dict(need=work(costs, 1, mul=4, sqr=2, add=1, sub=6))
+    if "mul_rows" in costs:
+        out["rows_need"] = work(costs, 1, mul_rows=6, add=1, sub=6)
+    funcs = dict(sass_functions(lib), **sass_functions(side.path))
+    loops = {}
+    for name, body in funcs.items():
+        layout = re.search(r"layout_epoch_bwd_kernelILi(\d)ELi0E", name)
+        if "rows_epoch_bwd_kernel" in name:
+            loops["rows"] = pipe_split(loop_ops(body))
+        elif layout:
+            k = int(layout.group(1))
+            loops[f"K={k}"] = {key: v / k for key, v in
+                               pipe_split(loop_ops(body)).items()}
+        elif re.search(r"\d+epoch_bwd_kernel", name):
+            loops["package"] = pipe_split(loop_ops(body))
+    out["loops"] = loops
+    log(f"epoch_bwd per pair: {json.dumps(out)}")
+    return out
+
+
+def bwd_bytes(T: int, N: int, C: int) -> int:
+    """Bytes epoch_bwd must move at T x N: ox, oy, the centers, pre and the
+    inverted totals read once (64 B an element as int32 limb planes), the
+    (8, T*N) key plane written once."""
+    return 64 * (2 * N + 2 * T + T * N + T * N // C) + 32 * T * N
+
+
+def bwd_inputs(rng, T: int, N: int, device, edge: bool = True):
+    """One phase's epoch_bwd inputs at T x N, the chain layout of the main
+    path: random planes with exact lanes (Ox == Mx) and, with edge, edge
+    values in the first lanes of the offsets and in two centers, and (pre,
+    itot) from epoch_fwd and the inversion."""
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
+
+    ox, oy = (random_planes(rng, 16, N, device) for _ in range(2))
+    cx, cy = (random_planes(rng, 16, T, device) for _ in range(2))
+    if edge:
+        plant_edge_lanes(ox)
+        plant_edge_lanes(oy)
+        # pair (0, 3): Ox == Mx and Oy == My (p - 1), so lambda+ is 0
+        cx[:, 0], cy[:, 0] = ox[:, 3], oy[:, 3]
+        cy[:, T - 1] = ox[:, 5]
+    for t, j in ((0, 5), (T - 1, N // 3), (T // 2, N - 1)):
+        ox[:, j] = cx[:, t]
+    pre, tot = EK.epoch_fwd(ox, cx, chunk_c=EK.CHUNK_C, lanes_w=EK.LANES_W)
+    itot = EK.batch_inv_planar(tot)
+    return ox, oy, cx, cy, pre, itot
+
+
+def side_bwd(lib, layout, ox, oy, cx, cy, pre, itot, htsz: int):
+    """epoch_bwd through the side library on the same inputs: layout
+    "rows" (the schoolbook kernel), 2 or 4 (K jobs a thread), or 5 and 6
+    (the package's kernel's arithmetic alone and its memory alone)."""
+    import torch
+
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
+
+    T, N = cx.shape[1], ox.shape[1]
+    out = torch.empty((8, T * N), dtype=torch.int32, device=ox.device)
+    args = (ox.data_ptr(), oy.data_ptr(), cx.data_ptr(), cy.data_ptr(),
+            pre.data_ptr(), itot.data_ptr(), out.data_ptr(), T, N,
+            EK.CHUNK_C, EK.LANES_W, htsz,
+            torch.cuda.current_stream().cuda_stream)
+    err = (lib.rows_epoch_bwd(*args) if layout == "rows"
+           else lib.layout_epoch_bwd(layout, *args))
+    if err:
+        raise RuntimeError(f"side epoch_bwd {layout} launch failed ({err})")
+    return out
+
+
+def check_epoch_bwd(device, side, shapes) -> None:
+    """The package's epoch_bwd (in the study also the parent's kernel and
+    the sweep's K-jobs layouts) bit-identical to epoch_bwd_plain at each
+    (T, N, htsz) of shapes (edge values and exact lanes planted)."""
+    import numpy as np
+    import torch
+
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
+
+    lib = side.load()
+    rng = np.random.default_rng(SEED + 17)
+    kw = dict(chunk_c=EK.CHUNK_C, lanes_w=EK.LANES_W)
+    for T, N, htsz in shapes:
+        ox, oy, cx, cy, pre, itot = bwd_inputs(rng, T, N, device)
+        want = EK.epoch_bwd_plain(ox, oy, cx, cy, pre, itot, htsz=htsz,
+                                  **kw)
+        got = {"package": EK.epoch_bwd(ox, oy, cx, cy, pre, itot, htsz=htsz,
+                                       **kw)}
+        for layout in ("rows", 2, 4) if side.study else ():
+            got[layout] = side_bwd(lib, layout, ox, oy, cx, cy, pre, itot,
+                                   htsz)
+        bad = [k for k, v in got.items() if not torch.equal(v, want)]
+        if bad:
+            raise AssertionError(f"epoch_bwd at T={T}, N={N}, htsz={htsz}: "
+                                 f"{bad} differ from the plain version")
+        log(f"epoch_bwd at T={T}, N={N}, htsz={htsz}: {list(got)} "
+            f"bit-identical to the plain version ({int(want[4].sum())} "
+            f"exact lanes, edge values planted)")
+
+
+def sweep_epoch_bwd(device, side, counts: dict, Ts=(4, 32),
+                    N: int = 1 << 18) -> dict:
+    """The layout, chosen by measurement: at each T the schoolbook kernel,
+    the package's (one job a thread) and K = 2, 4 jobs a thread in turns
+    (forward, then backward), each against the pipe-counted bound; then
+    the package's kernel's arithmetic alone and its memory alone."""
+    import numpy as np
+
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
+
+    lib = side.load()
+    rng = np.random.default_rng(SEED + 19)
+    out = {}
+    for T in Ts:
+        planes = bwd_inputs(rng, T, N, device, edge=False)
+        runs = {"rows": lambda: side_bwd(lib, "rows", *planes, 20),
+                "package": lambda: EK.epoch_bwd(
+                    *planes, htsz=20, chunk_c=EK.CHUNK_C, lanes_w=EK.LANES_W)}
+        for k in (2, 4):
+            runs[f"K={k}"] = lambda k=k: side_bwd(lib, k, *planes, 20)
+        order = list(runs) + list(reversed(runs))
+        times = collections.defaultdict(list)
+        for name in order:
+            runs[name]()
+            times[name].append(cuda_ms(runs[name], reps=20))
+        halves = {name: cuda_ms(lambda m=m: side_bwd(lib, m, *planes, 20),
+                                reps=20)
+                  for name, m in (("arithmetic_alone", 5),
+                                  ("memory_alone", 6))}
+        bound_ms, by = bound({k: T * N * v for k, v in counts["need"].items()},
+                             bwd_bytes(T, N, EK.CHUNK_C))
+        out[T] = dict(bound_ms=bound_ms, bound_by=by, ms=dict(times),
+                      **halves)
+        log(f"epoch_bwd sweep T={T}, N={N} (in turns {order}): "
+            + ", ".join(f"{n} {min(v):.4f} ms ({100 * bound_ms / min(v):.0f}%"
+                        f")" for n, v in times.items())
+            + f"; bound {bound_ms:.4f} ms by the {by}; the package's "
+            f"arithmetic alone {halves['arithmetic_alone']:.4f} ms, its "
+            f"memory alone {halves['memory_alone']:.4f} ms")
+    return out
+
+
+def epoch_bwd_checks(libs, side, costs: dict, device) -> dict:
+    """epoch_bwd on its own: its registers and spills; the field operations
+    against Python's integers; the compiled counts by pipe of the
+    function's need and of the kernel's loop; the kernel bit-identical to
+    the plain version at the main path's shapes (T=4, htsz 20), the
+    streamed path's (htsz 24), a phase of T=128 jobs (T=32) and narrow ones
+    (T that 2 and 4 do not divide, htsz 31 and 1). The study (side.study)
+    holds the parent's kernel and the K-jobs layouts to the same, then
+    runs the sweep."""
+    resources = bwd_resources(libs, side)
+    check_field_ops(side)
+    counts = bwd_counts(libs, side, costs)
+    check_epoch_bwd(device, side, ((4, 1 << 18, 20), (4, 1 << 18, 24),
+                                   (32, 1 << 18, 20), (3, 4096, 31),
+                                   (5, 4096, 1)))
+    out = dict(resources=resources, counts=counts,
+               pipe_probe=costs["pipe_probe"],
+               field_ops={k: costs[k] for k in SIDE_OPS})
+    if side.study:
+        out["sweep"] = sweep_epoch_bwd(device, side, counts)
     return out
 
 
@@ -882,9 +1719,12 @@ def profile_scan(solver, pub, pk: int, epochs: int) -> dict:
         log(f"profile: {us / 1e3 / epochs:8.3f} ms/epoch "
             f"{100 * us / 1e6 / busy:5.1f}% x{e.count // epochs:<4d} "
             f"{e.key[:80]}")
+    by_kernel = {e.key[:60]: e.self_device_time_total / 1e3 / epochs
+                 for e in rows[:10]}
     return dict(wall_ms_per_epoch=1e3 * wall / epochs,
                 busy_ms_per_epoch=1e3 * busy / epochs,
-                host_ms_per_epoch=1e3 * sum(host) / len(host), **overlap)
+                host_ms_per_epoch=1e3 * sum(host) / len(host),
+                device_ms_per_epoch_by_kernel=by_kernel, **overlap)
 
 
 def stream_overlap(prof) -> dict:
@@ -2094,11 +2934,11 @@ def cost_of_128_jobs(solver, pk: int) -> dict:
         wall = time.perf_counter() - t0
         out[t] = dict(centers_ms=centers_ms, epoch_ms=1e3 * wall / 3,
                       rate=res.giant_steps / wall)
+        if t == 128:
+            out[t]["profile"] = profile_scan(s, pub, pk, epochs=3)
         log(f"T={t}: centers {centers_ms:.2f} ms of host time per epoch; "
             f"3-epoch scan {1e3 * wall / 3:.2f} ms per epoch, "
             f"{res.giant_steps / wall:.1f} giant-steps/s")
-        if t == 128:
-            profile_scan(s, pub, pk, epochs=3)
     return out
 
 
@@ -2430,22 +3270,30 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.time()
 
-    # 1. build
-    took, libs = build_kernels()
+    # 1. build (with the side library of the field operations; with
+    # epoch_bwd's study under --epoch-bwd)
+    side = SideLib(study=sys.argv[1:] == ["--epoch-bwd"])
+    took, libs, costs = build_kernels(side)
     log(f"phase 1: kernels built in {took:.1f} s")
     torch.cuda.synchronize()
     if sys.argv[1:] == ["--builds"]:
         print(json.dumps(build_times(device)))
         print(card)
         return 0
+    bwd = epoch_bwd_checks(libs, side, costs, device)
+    if side.study:
+        print(json.dumps(bwd))
+        print(card)
+        return 0
     resources = mont_resources(libs)
 
     # 2. each epoch and table kernel against its plain version
     records = check_kernels(device, "w=2^26 shapes", htsz=20,
-                            m_tab=1 << 18, time_trees=True)
+                            m_tab=1 << 18, time_trees=True, costs=costs)
     records["fermat"]["widths"] = check_inversion(
-        device, (2048, 16384, 131072))
-    records.update(check_mont(device, 1 << 18, "w=2^26 shapes"))
+        device, (2048, 16384, 131072), costs)
+    records.update(check_mont(device, 1 << 18, "w=2^26 shapes", costs))
+    records["epoch_bwd"]["checks"] = bwd
     for name in ("mont_fwd", "mont_bwd"):
         records[name]["resources"] = {
             k: v for k, v in resources.items() if k.startswith(name)}
@@ -2519,7 +3367,8 @@ def main() -> int:
         f"(best {max(rates):.1f}) on {card}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"{mem[cfg.w]['scan_transients']} B above the table and offsets")
-    profile_scan(solver, pub, pk, epochs=4)
+    records["epoch_bwd"]["epoch_profile_t16"] = profile_scan(solver, pub, pk,
+                                                          epochs=4)
     waits = count_syncs(solver, pub, pk, epochs=4)
     with tempfile.TemporaryDirectory() as tmp:
         writer = ckpt.CheckpointWriter(os.path.join(tmp, "cw.json"), "fp",
@@ -2551,6 +3400,8 @@ def main() -> int:
         f"{waits / 4:g}")
     cli_out["layouts"] = check_layouts(device)
     cli_out["jobs_128"] = cost_of_128_jobs(solver, pk)
+    records["epoch_bwd"]["epoch_profile_t128"] = cli_out["jobs_128"][128][
+        "profile"]
     torch.cuda.synchronize()
 
     # the parallel layer in a group of one rank on NCCL: MeshSolver over a
@@ -2580,8 +3431,8 @@ def main() -> int:
     # this path gives the six kernels other inputs: 24 bucket bits in the
     # key plane, and 2^20-lane tiles in the build and the residue scans
     records_big = check_kernels(device, "w=2^30 shapes", htsz=cfg.htsz,
-                                m_tab=1 << 20, time_trees=False)
-    records_big.update(check_mont(device, 1 << 20, "w=2^30 shapes"))
+                                m_tab=1 << 20, time_trees=False, costs=costs)
+    records_big.update(check_mont(device, 1 << 20, "w=2^30 shapes", costs))
     records["mont_fwd"]["layouts_w30"] = sweep_mont(device, 1 << 20,
                                                     "w=2^30 tile")
     torch.cuda.synchronize()
