@@ -97,10 +97,10 @@ def decode_flat_phased(flat: int, t_jobs: int, n: int, phases: int):
     return (1, 2, 4)[code_i], p * per + t_local, j + 1
 
 
-def make_probe(dense, *, htsz: int):
+def make_probe(rows, *, htsz: int):
     """The (hi, lo) prefix probe of a table held whole on this device
-    (table.probe: one probe kernel launch per stream)."""
-    return lambda hi, lo: T.probe(hi, lo, dense, htsz=htsz)
+    (table.probe of its ProbeRows: one probe kernel launch per stream)."""
+    return lambda hi, lo: T.probe(hi, lo, rows, htsz=htsz)
 
 
 def epoch_probes(centers_x, centers_y, centers_inf, ox, oy, probe_fn, *,
@@ -143,19 +143,21 @@ def epoch_probes(centers_x, centers_y, centers_inf, ox, oy, probe_fn, *,
          found[2 * tn:] | centers_inf], hit_cap)
 
 
-def run_epoch(centers_x, centers_y, centers_inf, ox, oy, dense, *,
+def run_epoch(centers_x, centers_y, centers_inf, ox, oy, rows, *,
               htsz: int, hit_cap: int = 512):
     """The single-device unfused epoch: epoch_probes' hits through
-    make_probe, the count as a 0-d tensor, and giant_steps."""
+    make_probe of the table's ProbeRows, the count as a 0-d tensor, and
+    giant_steps."""
     idxs, cnt = epoch_probes(centers_x, centers_y, centers_inf, ox, oy,
-                             make_probe(dense, htsz=htsz), hit_cap=hit_cap)
+                             make_probe(rows, htsz=htsz), hit_cap=hit_cap)
     return idxs, cnt[0], (2 * ox.shape[0] + 1) * centers_x.shape[0]
 
 
-def dense_probe(dense):
-    """The probe of a table held whole on this device: (bucket, disc) int32
-    streams -> found, one probe kernel launch (table.probe_keys)."""
-    return lambda bucket, disc: T.probe_keys(bucket, disc, dense)
+def dense_probe(rows):
+    """The probe of a table held whole on this device (its ProbeRows):
+    (bucket, disc) int32 streams -> found, one probe kernel launch
+    (table.probe_keys)."""
+    return lambda bucket, disc: T.probe_keys(bucket, disc, rows)
 
 
 def fused_epoch_probes(centers_x, centers_y, centers_inf, ox_pl, oy_pl,
@@ -195,15 +197,16 @@ def fused_epoch_probes(centers_x, centers_y, centers_inf, ox_pl, oy_pl,
     return _masks_to_hits(parts + [found_c | centers_inf], hit_cap)
 
 
-def run_epoch_fused(centers_x, centers_y, centers_inf, ox_pl, oy_pl, dense,
+def run_epoch_fused(centers_x, centers_y, centers_inf, ox_pl, oy_pl, rows,
                     *, htsz: int, chunk_c: int = EK.CHUNK_C,
                     lanes_w: int = EK.LANES_W, hit_cap: int = 512,
                     phases: int = 1):
-    """The single-device epoch: fused_epoch_probes' hits, with the count as
-    a 0-d tensor, and giant_steps, the probed landings (2 per offset and
-    center pair plus each center)."""
+    """The single-device epoch: fused_epoch_probes' hits through
+    dense_probe of the table's ProbeRows, with the count as a 0-d tensor,
+    and giant_steps, the probed landings (2 per offset and center pair plus
+    each center)."""
     idxs, cnt = fused_epoch_probes(
-        centers_x, centers_y, centers_inf, ox_pl, oy_pl, dense_probe(dense),
+        centers_x, centers_y, centers_inf, ox_pl, oy_pl, dense_probe(rows),
         htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w, hit_cap=hit_cap,
         phases=phases)
     return idxs, cnt[0], (2 * ox_pl.shape[1] + 1) * centers_x.shape[0]
@@ -223,22 +226,22 @@ def probe_stream(device) -> torch.cuda.Stream:
     return _probe_streams[device]
 
 
-def probe_keys_flush(keys, bc, dc, cinf, dense, *, hit_cap: int = 512):
+def probe_keys_flush(keys, bc, dc, cinf, rows, *, hit_cap: int = 512):
     """Probe one epoch's key bundle (its (8, T*N) key plane from
-    epoch_landing_keys, with phases = 1, and its centers' keys): the hits
-    in decode_flat's layout and the count as a 0-d tensor. Drains the last
-    bundle of a pipelined scan."""
+    epoch_landing_keys, with phases = 1, and its centers' keys) against a
+    table's ProbeRows: the hits in decode_flat's layout and the count as a
+    0-d tensor. Drains the last bundle of a pipelined scan."""
     exact = keys[4] != 0
-    fp = T.probe_keys(keys[0], keys[1], dense)
-    fm = T.probe_keys(keys[2], keys[3], dense)
-    fc = T.probe_keys(bc, dc, dense)
+    fp = T.probe_keys(keys[0], keys[1], rows)
+    fm = T.probe_keys(keys[2], keys[3], rows)
+    fc = T.probe_keys(bc, dc, rows)
     idxs, cnt = _masks_to_hits(
         [fp & ~exact, fm & ~exact, exact, fc | cinf], hit_cap)
     return idxs, cnt[0]
 
 
 def pipelined_step(prev_keys, prev_bc, prev_dc, prev_cinf, prev_valid,
-                   centers_x, centers_y, ox_pl, oy_pl, dense, *, htsz: int,
+                   centers_x, centers_y, ox_pl, oy_pl, rows, *, htsz: int,
                    chunk_c: int = EK.CHUNK_C, lanes_w: int = EK.LANES_W,
                    hit_cap: int = 512):
     """One step of a pipelined scan: the probe of the PREVIOUS epoch's key
@@ -264,7 +267,7 @@ def pipelined_step(prev_keys, prev_bc, prev_dc, prev_cinf, prev_valid,
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             idxs, cnt = probe_keys_flush(prev_keys, prev_bc, prev_dc,
-                                         prev_cinf, dense, hit_cap=hit_cap)
+                                         prev_cinf, rows, hit_cap=hit_cap)
             done = side.record_event()
         # the previous bundle is read on side: its memory must not go
         # back to the current stream's pool before side is done with it
@@ -275,7 +278,7 @@ def pipelined_step(prev_keys, prev_bc, prev_dc, prev_cinf, prev_valid,
         cnt.record_stream(cur)
     else:
         idxs, cnt = probe_keys_flush(prev_keys, prev_bc, prev_dc, prev_cinf,
-                                     dense, hit_cap=hit_cap)
+                                     rows, hit_cap=hit_cap)
     keys = EK.epoch_landing_keys(
         centers_x.T.contiguous(), centers_y.T.contiguous(), ox_pl, oy_pl,
         htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w)

@@ -343,12 +343,12 @@ class Solver:
         cap = hit_cap or cfg.hit_cap
         if self.fused:
             idxs, cnt, gs = giant.run_epoch_fused(
-                cx, cy, cinf, self.ox_pl, self.oy_pl, self.baby.dense,
+                cx, cy, cinf, self.ox_pl, self.oy_pl, self.baby.rows,
                 htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
                 hit_cap=cap, phases=self._phases)
         else:
             idxs, cnt, gs = giant.run_epoch(
-                cx, cy, cinf, self.ox, self.oy, self.baby.dense,
+                cx, cy, cinf, self.ox, self.oy, self.baby.rows,
                 htsz=cfg.htsz, hit_cap=cap)
         return epoch, first_job, idxs, cnt, gs
 
@@ -365,7 +365,7 @@ class Solver:
         prev = self._prev
         keys, bc, dc, idxs, cnt = giant.pipelined_step(
             *(prev[1:] if prev else (None,) * 4), prev is not None,
-            cx, cy, self.ox_pl, self.oy_pl, self.baby.dense, htsz=cfg.htsz,
+            cx, cy, self.ox_pl, self.oy_pl, self.baby.rows, htsz=cfg.htsz,
             chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w, hit_cap=cfg.hit_cap)
         self._prev = (first_job, keys, bc, dc, cinf)
         if prev is None:
@@ -379,7 +379,7 @@ class Solver:
         first_job, keys, bc, dc, cinf = self._prev
         self._prev = None
         idxs, cnt = giant.probe_keys_flush(keys, bc, dc, cinf,
-                                           self.baby.dense,
+                                           self.baby.rows,
                                            hit_cap=cfg.hit_cap)
         return (first_job // cfg.jobs_per_epoch, first_job, idxs, cnt,
                 (2 * cfg.n_offsets + 1) * cfg.jobs_per_epoch)

@@ -29,7 +29,7 @@ the uint16 hint plane is an int16 tensor holding the same bits.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +50,14 @@ DEVICE_WINDOW = 128
 # build holds all w prefixes and a w-long sort at once) and "auto"
 # positions mean rescan.
 STREAMED_W = 1 << 28
+
+
+class ProbeRows(NamedTuple):
+    """What a probe reads: the dense (rows, window) bucket matrix and its
+    (rows,) row-length plane (probe_kernel.row_len_dtype)."""
+
+    dense: torch.Tensor
+    row_len: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -73,6 +81,14 @@ class BabyTable:
       bps = 2^htsz / n_table_shards; ``offsets`` stay global, and
       ``lookup_fn`` pulls a row from the rank that owns it.
 
+    Every build fills a row from slot 0 and leaves DENSE_FILL after its
+    last entry. ``row_len`` holds each of ``dense``'s rows' entry count,
+    uint8 up to 255 slots a row and int16 above (1 MiB at htsz 20, 16
+    MiB at htsz 24: it stays in the card's L2). It is made from
+    ``offsets`` whenever a table is made (one diff; dataclasses.replace
+    makes it anew), is not saved in artifacts, and is what the probe
+    kernel reads to touch only occupied slots.
+
     Positions are uint32: the planes hold their bits in int32 tensors and
     are read back as uint32."""
 
@@ -89,6 +105,19 @@ class BabyTable:
     pos_lo: Optional[torch.Tensor] = None  # (2^htsz, window) int16 bits
     n_table_shards: int = 1
     shard: Optional[int] = None  # this rank's shard of a sharded build
+    # (rows of dense,) entry counts, made from offsets
+    row_len: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        rows = self.dense.shape[0]
+        row0 = (self.shard or 0) * rows
+        counts = torch.diff(PL.u32_value(self.offsets[row0:row0 + rows + 1]))
+        self.row_len = probe_kernel.row_lengths(counts, self.window)
+
+    @property
+    def rows(self) -> ProbeRows:
+        """The dense matrix and its row lengths, as the probe takes them."""
+        return ProbeRows(self.dense, self.row_len)
 
     def lookup_positions(self, x_int: int) -> list[int]:
         """All baby indices whose X prefix matches that of x_int: the full
@@ -670,11 +699,11 @@ def build_baby_table_streamed(w: int, htsz: Optional[int] = None,
 # Probing
 
 
-def probe_keys(bucket, disc, dense):
-    """found[i] = any(dense[bucket[i], :] == disc[i]) for int32 key rows:
-    the probe kernel on the card, its plain version on the CPU
-    (ops/probe_kernel.probe_rows)."""
-    return probe_kernel.probe_rows(bucket, disc, dense)
+def probe_keys(bucket, disc, rows: ProbeRows):
+    """found[i] = any(dense[bucket[i], :] == disc[i]) for int32 key rows,
+    reading each row's occupied slots only: the probe kernel on the card,
+    its plain version on the CPU (ops/probe_kernel.probe_rows)."""
+    return probe_kernel.probe_rows(bucket, disc, rows.dense, rows.row_len)
 
 
 def prefix_keys(hi, lo, htsz: int):
@@ -684,14 +713,14 @@ def prefix_keys(hi, lo, htsz: int):
     return PL.u32_bits(bucket), PL.u32_bits(disc)
 
 
-def probe(hi, lo, dense, *, htsz: int):
+def probe(hi, lo, rows: ProbeRows, *, htsz: int):
     """Membership probe of 64-bit prefixes (hi32, lo32 as int32 bits):
     their probe keys (prefix_keys), then one probe_keys."""
-    return probe_keys(*prefix_keys(hi, lo, htsz), dense)
+    return probe_keys(*prefix_keys(hi, lo, htsz), rows)
 
 
 def probe_x(x_limbs, table: BabyTable):
     """Probe full X coordinates ((..., 16) limbs) against a BabyTable."""
     hi, lo = F.x_prefix64(x_limbs)
-    return probe(hi.reshape(-1), lo.reshape(-1), table.dense,
+    return probe(hi.reshape(-1), lo.reshape(-1), table.rows,
                  htsz=table.htsz).reshape(hi.shape)

@@ -40,7 +40,7 @@ SIGNATURES = {
     "bsgs_mont_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bsgs_modinv": [_P, _P, _I, _P],
     "bsgs_add_const": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
-    "bsgs_probe_rows": [_P, _P, _P, _P, _I, _I, _P],
+    "bsgs_probe_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 # kernel wrappers, in the order of the JAX package's Pallas kernels

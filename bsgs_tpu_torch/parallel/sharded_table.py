@@ -44,13 +44,14 @@ from ..ops import planar as PL, probe_kernel
 @dataclasses.dataclass
 class ShardedTableSpec:
     """Shard ``shard`` of a table split into n_shards bucket ranges: its
-    dense rows and every shard's entry count."""
+    dense rows, their lengths and every shard's entry count."""
 
     htsz: int
     window: int
     n_shards: int
     shard: int
     dense: torch.Tensor  # (buckets_per_shard, window) int32: own rows
+    row_len: torch.Tensor  # (buckets_per_shard,): their entry counts
     shard_entries: np.ndarray  # (n_shards,) int64
 
     @property
@@ -71,7 +72,8 @@ def _shard_entries(table: BabyTable, n_shards: int) -> np.ndarray:
 def shard_table(table: BabyTable, n_shards: int,
                 shard: int = 0) -> ShardedTableSpec:
     """Shard ``shard`` of a table held whole on this rank, split into
-    n_shards bucket ranges (its rows are a view of table.dense)."""
+    n_shards bucket ranges (its rows and their lengths are views of
+    table.dense and table.row_len)."""
     if table.shard is not None:
         raise ValueError("the table is already sharded: use "
                          "spec_from_presharded")
@@ -79,22 +81,23 @@ def shard_table(table: BabyTable, n_shards: int,
     if nb % n_shards or not 0 <= shard < n_shards:
         raise ValueError(f"shard {shard} of {n_shards}: 2^{table.htsz} "
                          f"buckets do not split evenly")
-    bps = nb // n_shards
+    own = slice(shard * (nb // n_shards), (shard + 1) * (nb // n_shards))
     return ShardedTableSpec(
         htsz=table.htsz, window=table.window, n_shards=n_shards, shard=shard,
-        dense=table.dense[shard * bps:(shard + 1) * bps],
+        dense=table.dense[own], row_len=table.row_len[own],
         shard_entries=_shard_entries(table, n_shards))
 
 
 def spec_from_presharded(table: BabyTable) -> ShardedTableSpec:
     """The spec of a table built split over the ranks
-    (build_sharded_table): table.dense is already this
+    (build_sharded_table): table.dense and table.row_len are already this
     rank's rows; the whole matrix exists on no device."""
     if table.shard is None:
         raise ValueError("the table was not built sharded")
     return ShardedTableSpec(
         htsz=table.htsz, window=table.window,
         n_shards=table.n_table_shards, shard=table.shard, dense=table.dense,
+        row_len=table.row_len,
         shard_entries=_shard_entries(table, table.n_table_shards))
 
 
@@ -170,7 +173,7 @@ def probe_own_rows(bucket, disc, spec: ShardedTableSpec):
     local = bucket - spec.row0
     mine = (local >= 0) & (local < spec.buckets_per_shard)
     return probe_kernel.probe_rows(torch.where(mine, local, 0), disc,
-                                   spec.dense) & mine
+                                   spec.dense, spec.row_len) & mine
 
 
 def alltoall_cap(m: int, n: int, slack: float) -> int:

@@ -80,8 +80,8 @@ class MeshSolver(S.Solver):
         self._spec = None
         # the fused epoch probes (bucket, disc) keys, the unfused one
         # (hi, lo) prefixes
-        self._probe = (giant.dense_probe(self.baby.dense) if self.fused
-                       else giant.make_probe(self.baby.dense,
+        self._probe = (giant.dense_probe(self.baby.rows) if self.fused
+                       else giant.make_probe(self.baby.rows,
                                              htsz=self.cfg.htsz))
         if self.baby.shard is not None:
             if not shard_baby_table:

@@ -10,7 +10,9 @@ working set is the port's own device layout:
                    CSR arrays of a one-shot build (disc and position, 8 B
                    a key) or, from table.STREAMED_W on, the streamed
                    build's 2-byte hint (rescan) or 4-byte position plane
-                   (mirror) per slot; offsets 4 B a bucket
+                   (mirror) per slot; offsets 4 B a bucket, and the
+                   probe's row-length plane, 1 B a bucket (2 B above 255
+                   slots a row)
   giant offsets    x and y planes, 2 * 64 B per offset
   epoch transients EPOCH_BYTES_PER_PAIR per (job, offset) pair of an epoch
   build peak       the table, plus BUILD_BYTES_PER_KEY per key for the
@@ -33,6 +35,7 @@ import torch
 
 from .. import resolve_device
 from ..models import solver as smod, table as tbl
+from ..ops import probe_kernel as PK
 
 # Device bytes a scan holds beyond the table and the offset planes, per
 # (job, offset) pair of an epoch (74.5 measured at T=16, N=2^18).
@@ -122,7 +125,9 @@ def plan(w: int, window: int = tbl.DEVICE_WINDOW) -> TuneResult:
     cfg = smod.SolverConfig(w=w, htsz=htsz, window=window)
     streamed = w >= tbl.STREAMED_W
     table_b = ((1 << htsz) * window * smod.table_bytes_per_slot(cfg)
-               + 4 * ((1 << htsz) + 1) + (0 if streamed else 8 * w))
+               + 4 * ((1 << htsz) + 1)
+               + (1 << htsz) * PK.row_len_dtype(window).itemsize
+               + (0 if streamed else 8 * w))
     build_b = int(STREAMED_BUILD_BYTES_PER_BUCKET * (1 << htsz) if streamed
                   else BUILD_BYTES_PER_KEY * w)
     n, t = cfg.n_offsets, cfg.jobs_per_epoch

@@ -7,6 +7,10 @@
     python3 chip_smoke.py --epoch-bwd # only the build, phase 1 and
                                       # epoch_bwd's study (the parent's
                                       # kernel and the sweep), as JSON
+    python3 chip_smoke.py --probe     # only the build, the w=2^26 table
+                                      # and the probe's study (the
+                                      # parent's kernel and the layouts),
+                                      # as JSON
 
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 nonzero:
@@ -34,14 +38,19 @@ nonzero:
    Montgomery kernels against the serial and the segmented plain versions
    at the table tile (doubling lanes planted, and a ragged width) and
    time the tile's inversion under several chain layouts;
-3. build the w=2^26 baby table (htsz=20, 128-slot rows, tile 2^18);
+3. build the w=2^26 baby table (htsz=20, 128-slot rows, tile 2^18) and
+   check in one pass that its row lengths are the diff of its offsets with
+   FILL past them (as for every table built below);
 4. solve a planted key in the second epoch at N=2^18, T=16, 4 phases,
    3 epochs in flight; read the launch counts of phases 3-4;
 5. run the probe kernel and its plain version on that table with the
-   keys of a real epoch phase plus planted members (m = 2^20, 16 and an
-   odd length) and on synthetic 512-slot and 20-slot tables,
-   bit-identical, timed; build the same table streamed and require the
-   one-shot build's entries, one for one;
+   keys of a real epoch phase plus planted members and 0xFFFFFFFF discs
+   (m = 2^20, 16 and an odd length) and on synthetic 512-slot and 20-slot
+   tables of random row lengths (full and empty rows, real 0xFFFFFFFF
+   entries), bit-identical to each other and to the whole-row probe (the
+   JAX package's), timed against the bytes of the occupied sectors and of
+   whole rows; build the same table streamed and require the one-shot
+   build's entries and row lengths, one for one;
 6. time 8-epoch scans of a pubkey with no key in range (giant-steps/s),
    requiring the launches per epoch that the inversion tree should make,
    and profile a short one (device time by kernel, busy share, the host's
@@ -212,6 +221,27 @@ def cuda_ms(fn, reps: int, queued: bool = True) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int, flush_bytes: int = 1 << 28) -> float:
+    """Mean device time of fn() with the L2 cold: before each launch a read
+    of flush_bytes (five times the 50 MB L2) evicts what the last one left
+    and leaves no dirty line to write back, and events time the launch
+    alone."""
+    import torch
+
+    buf = torch.ones(flush_bytes, dtype=torch.uint8, device="cuda")
+    pairs = []
+    for _ in range(reps):
+        buf.amax()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def random_planes(rng, rows: int, m: int, device):
@@ -1090,6 +1120,157 @@ extern "C" int rows_epoch_bwd(const void* ox, const void* oy,
 }
 """
 
+# The probe's study (python3 chip_smoke.py --probe), appended to SIDE_SRC in
+# that mode only: the parent's probe kernel, one warp a probe reading the
+# whole row (a uint4 a lane, one __any_sync), and the package kernel's other
+# layouts (groups of G = 8, 16 or 32 lanes a probe; with kPer = 4 a group
+# walks 4 probes a grid apart, the next probe's key loaded before the
+# current row's loads and its length right after them), uint8 lengths only,
+# to time the package's kernel against in turns.
+PROBE_STUDY_SRC = r"""
+namespace layout_probe {
+
+constexpr int kBlock = 256;
+constexpr uint32_t kFill = 0xFFFFFFFFu;
+
+template <int G, int kPer>
+__global__ void __launch_bounds__(kBlock)
+    probe_rows_kernel(const uint32_t* __restrict__ bucket,
+                      const uint32_t* __restrict__ disc,
+                      const uint4* __restrict__ dense,
+                      const uint8_t* __restrict__ row_len,
+                      uint8_t* __restrict__ found, int m, int vecs,
+                      int window) {
+  constexpr int kUnroll = G >= 32 ? 1 : 32 / G;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);
+  const unsigned group_mask =
+      G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1) << (lane & ~(G - 1));
+  const long long groups = (long long)gridDim.x * (kBlock / G);
+  long long p = ((long long)blockIdx.x * kBlock + threadIdx.x) / G;
+
+  uint32_t b = 0, d = 0;
+  int n = 0;
+  if (p < m) {
+    b = __ldg(bucket + p);
+    d = __ldg(disc + p);
+    n = (int)__ldg(row_len + b);
+  }
+#pragma unroll 1
+  for (int k = 0; k < kPer; ++k) {
+    const long long pn = p + groups;
+    const bool next = k + 1 < kPer && pn < m;
+    uint32_t bn = 0, dn = 0;
+    if (next) {
+      bn = __ldg(bucket + pn);
+      dn = __ldg(disc + pn);
+    }
+    bool hit = p < m && d == kFill && n < window;
+    const int nv = hit ? 0 : (n + 3) >> 2;
+    const uint4* row = dense + (long long)b * vecs;
+    for (int v0 = sub; v0 < nv; v0 += G * kUnroll) {
+      uint4 q[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (v0 + u * G < nv) q[u] = __ldg(row + v0 + u * G);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int v = v0 + u * G;
+        if (v < nv) {
+          const int rem = n - 4 * v;
+          hit |= (q[u].x == d) | ((q[u].y == d) & (rem > 1)) |
+                 ((q[u].z == d) & (rem > 2)) | ((q[u].w == d) & (rem > 3));
+        }
+      }
+    }
+    const int nn = next ? (int)__ldg(row_len + bn) : 0;
+    const unsigned votes = __ballot_sync(0xFFFFFFFFu, hit);
+    if (sub == 0 && p < m) found[p] = (votes & group_mask) ? 1 : 0;
+    p = pn;
+    b = bn;
+    d = dn;
+    n = nn;
+  }
+}
+
+template <int G, int kPer>
+int launch(const void* bucket, const void* disc, const void* dense,
+           const void* row_len, void* found, int m, int vecs,
+           cudaStream_t stream) {
+  const long long per_block = (long long)(kBlock / G) * kPer;
+  const unsigned grid = (unsigned)(((long long)m + per_block - 1) / per_block);
+  probe_rows_kernel<G, kPer><<<grid, kBlock, 0, stream>>>(
+      (const uint32_t*)bucket, (const uint32_t*)disc, (const uint4*)dense,
+      (const uint8_t*)row_len, (uint8_t*)found, m, vecs, 4 * vecs);
+  return 0;
+}
+
+}  // namespace layout_probe
+
+// lanes (8, 16 or 32) answer a probe; each group walks per (1 or 4) probes;
+// 8 lanes and 1 probe a group is the package's kernel, not built here
+extern "C" int layout_probe_rows(const void* bucket, const void* disc,
+                                 const void* dense, const void* row_len,
+                                 void* found, int m, int vecs, int lanes,
+                                 int per, void* stream) {
+  using namespace layout_probe;
+  if (m <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int err = (int)cudaErrorInvalidValue;
+#define LAYOUT(G, K) \
+  case G * 10 + K:   \
+    err = launch<G, K>(bucket, disc, dense, row_len, found, m, vecs, s); \
+    break;
+  switch (lanes * 10 + per) {
+    LAYOUT(8, 4) LAYOUT(16, 1) LAYOUT(16, 4) LAYOUT(32, 1) LAYOUT(32, 4)
+  }
+#undef LAYOUT
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+namespace parent_probe {
+
+constexpr int kBlock = 256;
+constexpr int kWarpsPerBlock = kBlock / 32;
+
+__global__ void __launch_bounds__(kBlock)
+    probe_rows_kernel(const uint32_t* __restrict__ bucket,
+                      const uint32_t* __restrict__ disc,
+                      const uint4* __restrict__ dense,
+                      uint8_t* __restrict__ found, int m, int vecs) {
+  const long long probe =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (probe >= m) return;  // the whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const uint32_t d = __ldg(disc + probe);
+  const uint4* row = dense + (long long)__ldg(bucket + probe) * vecs;
+  bool hit = false;
+  for (int v = lane; v < vecs; v += 32) {
+    const uint4 q = __ldg(row + v);
+    hit |= (q.x == d) | (q.y == d) | (q.z == d) | (q.w == d);
+  }
+  hit = __any_sync(0xFFFFFFFFu, hit);
+  if (lane == 0) found[probe] = hit ? 1 : 0;
+}
+
+}  // namespace parent_probe
+
+extern "C" int parent_probe_rows(const void* bucket, const void* disc,
+                                 const void* dense, void* found, int m,
+                                 int vecs, void* stream) {
+  if (m <= 0) return 0;
+  const unsigned grid = (unsigned)(((long long)m
+      + parent_probe::kWarpsPerBlock - 1) / parent_probe::kWarpsPerBlock);
+  parent_probe::probe_rows_kernel<<<grid, parent_probe::kBlock, 0,
+                                    (cudaStream_t)stream>>>(
+      (const uint32_t*)bucket, (const uint32_t*)disc, (const uint4*)dense,
+      (uint8_t*)found, m, vecs);
+  return (int)cudaGetLastError();
+}
+"""
+
 # the field operations of SIDE_SRC, in side_op's order, with their values
 # as Python integers; the study adds the schoolbook multiply ("mul_rows",
 # rows_op)
@@ -1111,18 +1292,20 @@ WIDE_RATIO = (1.9, 3.0)
 
 
 class SideLib:
-    """Build the side library (SIDE_SRC over csrc/field.cuh, and STUDY_SRC
-    with study) with nvcc into a temporary directory, started at once so
-    that it builds while the package's sources do; .load() waits for it and
-    loads it."""
+    """Build the side library (SIDE_SRC over csrc/field.cuh, STUDY_SRC with
+    study, PROBE_STUDY_SRC with probe_study) with nvcc into a temporary
+    directory, started at once so that it builds while the package's
+    sources do; .load() waits for it and loads it."""
 
-    def __init__(self, study: bool = False):
+    def __init__(self, study: bool = False, probe_study: bool = False):
         from bsgs_tpu_torch.ops import _cuda
 
         self.study = study
+        self.probe_study = probe_study
         self.dir = tempfile.TemporaryDirectory()
         src = Path(self.dir.name) / "side.cu"
-        src.write_text(SIDE_SRC + (STUDY_SRC if study else ""))
+        src.write_text(SIDE_SRC + (STUDY_SRC if study else "")
+                       + (PROBE_STUDY_SRC if probe_study else ""))
         self.path = Path(self.dir.name) / "libside.so"
         self.proc = subprocess.Popen(
             [_cuda._nvcc(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
@@ -1149,6 +1332,10 @@ class SideLib:
                 lib.layout_epoch_bwd.argtypes = [I] + [P] * 7 + [I] * 5 + [P]
                 lib.rows_op.argtypes = [P, P, P, I, P]
                 fns += [lib.rows_epoch_bwd, lib.layout_epoch_bwd, lib.rows_op]
+            if self.probe_study:
+                lib.parent_probe_rows.argtypes = [P] * 4 + [I] * 2 + [P]
+                lib.layout_probe_rows.argtypes = [P] * 5 + [I] * 4 + [P]
+                fns += [lib.parent_probe_rows, lib.layout_probe_rows]
             for fn in fns:
                 fn.restype = I
             self.lib = lib
@@ -1557,32 +1744,128 @@ def phase_keys(solver, seed: int):
     return keys[0].clone(), keys[1].clone()
 
 
-def plant_members(bucket, disc, dense, gen, every: int = 8):
+def plant_members(bucket, disc, rows, gen, every: int = 8):
     """Overwrite every ``every``-th probe with a random slot of the table
-    (a member, or an empty slot's 0xFFFFFFFF, which matches too)."""
+    (``rows``, its ProbeRows): a member, or an empty slot's 0xFFFFFFFF,
+    which matches too; then every (8 * every)-th from the (every / 2)-th
+    with an 0xFFFFFFFF disc, in turn against one of the table's 64 longest
+    rows (full ones where the table has any: none of a real table's rows
+    is) and against a random row."""
     import torch
 
-    idx = torch.arange(0, bucket.shape[0], every, device=bucket.device)
-    rows = torch.randint(0, dense.shape[0], idx.shape, generator=gen,
-                         device=bucket.device)
+    dense, row_len = rows
+    dev = bucket.device
+    idx = torch.arange(0, bucket.shape[0], every, device=dev)
+    pick = torch.randint(0, dense.shape[0], idx.shape, generator=gen,
+                         device=dev)
     cols = torch.randint(0, dense.shape[1], idx.shape, generator=gen,
-                         device=bucket.device)
-    bucket[idx] = rows.to(torch.int32)
-    disc[idx] = dense[rows, cols]
+                         device=dev)
+    bucket[idx] = pick.to(torch.int32)
+    disc[idx] = dense[pick, cols]
+    fills = torch.arange(every // 2, bucket.shape[0], 8 * every, device=dev)
+    longest = torch.topk(row_len.long(), min(64, row_len.shape[0])).indices
+    toward = torch.where(
+        torch.arange(fills.shape[0], device=dev) % 2 == 0,
+        longest[torch.randint(0, longest.shape[0], fills.shape,
+                              generator=gen, device=dev)],
+        torch.randint(0, dense.shape[0], fills.shape, generator=gen,
+                      device=dev))
+    bucket[fills] = toward.to(torch.int32)
+    disc[fills] = -1
     return bucket, disc
 
 
-def check_probe(label: str, bucket, disc, dense, reps: int = 20) -> dict:
-    """probe_rows against probe_rows_plain on the card, bit-identical, both
-    timed. The bound is bytes: each probe reads its row and its 8-byte key
-    and writes one byte (the window compares are negligible beside
-    them)."""
+def whole_row_probe(bucket, disc, dense, block: int = 1 << 18):
+    """The JAX package's probe, the contract: any(dense[bucket[i], :] ==
+    disc[i]) over whole rows, block by block of the stream."""
+    import torch
+
+    found = torch.empty(bucket.shape, dtype=torch.bool, device=bucket.device)
+    for s in range(0, bucket.shape[0], block):
+        sl = slice(s, s + block)
+        found[sl] = (dense[bucket[sl].long()] == disc[sl, None]).any(dim=1)
+    return found
+
+
+def probe_bytes(bucket, disc, rows) -> tuple:
+    """(bytes this stream's probes need, bytes a whole-row read moves). A
+    probe reads its 8-byte key and its row's length and writes one byte,
+    and reads the 32-byte sectors of its row's occupied slots: none where
+    an 0xFFFFFFFF disc is answered from the length (a row with an empty
+    slot). A whole-row read takes 4 * window bytes of row a probe."""
+    import torch
+
+    dense, row_len = rows
+    m, window = bucket.shape[0], dense.shape[1]
+    n = row_len[bucket.long()].long()
+    sectors = torch.where((disc == -1) & (n < window), 0, (4 * n + 31) // 32)
+    need = 32 * int(sectors.sum()) + m * (9 + row_len.element_size())
+    return need, m * (4 * window + 9)
+
+
+def check_row_lengths(label: str, table, block: int = 1 << 20) -> None:
+    """One pass over a built table on the card: row_len equals the diff of
+    its offsets over its own rows, and dense[r, row_len[r]:] is all FILL
+    (so the occupied-slot probe equals the whole-row one on it)."""
+    import torch
+
+    from bsgs_tpu_torch.models import table as T
+    from bsgs_tpu_torch.ops import planar as PL
+
+    rows, window = table.dense.shape
+    row0 = (table.shard or 0) * rows
+    counts = torch.diff(PL.u32_value(table.offsets[row0:row0 + rows + 1]))
+    if not torch.equal(table.row_len.long(), counts):
+        raise AssertionError(f"{label}: row_len differs from the offsets")
+    cols = torch.arange(window, device=table.dense.device)
+    bad = torch.zeros((), dtype=torch.int64, device=table.dense.device)
+    for s in range(0, rows, block):
+        past = cols >= table.row_len[s:s + block].long()[:, None]
+        bad += ((table.dense[s:s + block] != T.DENSE_FILL) & past).sum()
+    if int(bad):
+        raise AssertionError(f"{label}: {int(bad)} slots past row_len hold "
+                             f"entries")
+    log(f"{label}: row_len ({table.row_len.dtype}, "
+        f"{table.row_len.numel() * table.row_len.element_size() / 2**20:.0f}"
+        f" MiB) equals the diff of the offsets, FILL past it in all {rows} "
+        f"rows; mean {float(counts.double().mean()):.2f} entries a row of "
+        f"{window}")
+
+
+def plant_slot(baby, bucket: int, disc: int) -> int:
+    """Write an entry (int32 bits) into the first slot past row bucket's
+    entries and count it in row_len; returns its column."""
+    col = int(baby.row_len[bucket])
+    if col >= baby.window:
+        raise AssertionError(f"row {bucket} is full")
+    baby.dense[bucket, col] = disc
+    baby.row_len[bucket] += 1
+    return col
+
+
+def unplant_slot(baby, bucket: int, col: int) -> None:
+    """Undo plant_slot (the last entry planted in that row)."""
+    from bsgs_tpu_torch.models import table as T
+
+    baby.dense[bucket, col] = T.DENSE_FILL
+    baby.row_len[bucket] -= 1
+
+
+def check_probe(label: str, bucket, disc, rows, reps: int = 20) -> dict:
+    """probe_rows against probe_rows_plain on the card, bit-identical, and
+    against the whole-row function (the JAX package's probe) on this table,
+    whose rows hold FILL past their lengths; both versions timed, the
+    kernel also with the L2 flushed before each launch. The
+    bound is bytes: each probe's key, its row's length, its answer and its
+    row's occupied sectors (probe_bytes); bound_ms_whole_row charges the
+    whole row, the least any whole-row kernel could take."""
     import torch
 
     from bsgs_tpu_torch.ops import probe_kernel as PK
 
-    got = PK.probe_rows(bucket, disc, dense)
-    want = PK.probe_rows_plain(bucket, disc, dense)
+    got = PK.probe_rows(bucket, disc, *rows)
+    want = PK.probe_rows_plain(bucket, disc, *rows)
+    whole = whole_row_probe(bucket, disc, rows.dense)
     torch.cuda.synchronize()
     if got.dtype != torch.bool or got.shape != want.shape:
         raise AssertionError(f"probe {label}: {got.dtype} {got.shape}")
@@ -1590,56 +1873,188 @@ def check_probe(label: str, bucket, disc, dense, reps: int = 20) -> dict:
     if err:
         raise AssertionError(f"probe {label}: kernel differs from its plain "
                              f"version on {err} probes")
-    m, window = bucket.shape[0], dense.shape[1]
+    err = int((got != whole).sum())
+    if err:
+        raise AssertionError(f"probe {label}: kernel differs from the "
+                             f"whole-row probe on {err} probes")
+    m, window = bucket.shape[0], rows.dense.shape[1]
     hits = int(want.sum())
+    fills = int((disc == -1).sum())
     if m >= 16 and not 0 < hits < m:
         raise AssertionError(f"probe {label}: one-sided answers ({hits}/{m})")
-    ms = cuda_ms(lambda: PK.probe_rows(bucket, disc, dense), reps)
-    plain_ms = cuda_ms(lambda: PK.probe_rows_plain(bucket, disc, dense), 2,
+    ms = cuda_ms(lambda: PK.probe_rows(bucket, disc, *rows), reps)
+    ms_cold = cuda_ms_cold(lambda: PK.probe_rows(bucket, disc, *rows), 10)
+    plain_ms = cuda_ms(lambda: PK.probe_rows_plain(bucket, disc, *rows), 2,
                        queued=False)
-    bound_ms = 1e3 * m * (4 * window + 9) / HBM_BYTES_PER_S
-    log(f"kernel probe_rows [{label}]: bit-identical to plain ({hits} of "
-        f"{m} found); {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.4f} ms by bytes), table "
-        f"{dense.numel() * 4 / 2**20:.0f} MiB, window {window}")
-    return dict(label=label, m=m, window=window, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, table_mib=dense.numel() * 4 / 2**20)
+    need, whole_bytes = probe_bytes(bucket, disc, rows)
+    bound_ms = 1e3 * need / HBM_BYTES_PER_S
+    bound_whole = 1e3 * whole_bytes / HBM_BYTES_PER_S
+    log(f"kernel probe_rows [{label}]: bit-identical to plain and to the "
+        f"whole-row probe ({hits} of {m} found, {fills} 0xFFFFFFFF discs); "
+        f"{ms:.4f} ms back to back, {ms_cold:.4f} ms with the L2 flushed "
+        f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by the "
+        f"{need / m:.1f} B a probe needs, {100 * bound_ms / ms:.0f}%, "
+        f"{100 * bound_ms / ms_cold:.0f}% cold; whole rows "
+        f"{bound_whole:.4f} ms), table "
+        f"{rows.dense.numel() * 4 / 2**20:.0f} MiB, window {window}")
+    return dict(label=label, m=m, window=window, ms=ms, ms_l2_cold=ms_cold,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_ms_whole_row=bound_whole,
+                bytes_per_probe=need / m, found=hits, fill_discs=fills,
+                table_mib=rows.dense.numel() * 4 / 2**20)
 
 
 def check_probe_on_table(label: str, solver, device) -> list:
     """The probe kernel on a solver's own table: one phase's stream of
-    real keys with members planted, then m = 16 and an odd length."""
+    real keys with members and 0xFFFFFFFF discs planted, then m = 16 and an
+    odd length."""
     import torch
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    bucket, disc = plant_members(*phase_keys(solver, SEED), solver.baby.dense,
-                                 gen)
-    dense = solver.baby.dense
-    out = [check_probe(f"{label}, one phase's stream", bucket, disc, dense)]
+    rows = solver.baby.rows
+    bucket, disc = plant_members(*phase_keys(solver, SEED), rows, gen)
+    out = [check_probe(f"{label}, one phase's stream", bucket, disc, rows)]
     for m in (16, 5001):
         out.append(check_probe(f"{label}, m={m}", bucket[:m].clone(),
-                               disc[:m].clone(), dense))
+                               disc[:m].clone(), rows))
     return out
 
 
 def check_probe_synthetic(device, rows: int, window: int, m: int) -> dict:
-    """A seeded random table of another row width, half the probes planted
-    members: the 512-slot layout (2^18 rows, 512 MiB, well beyond the 50 MB
-    L2) and a narrow row that leaves most of a warp's lanes idle."""
+    """A seeded random table of another row width, its rows of random
+    lengths with FILL tails: full and empty rows among them, and real
+    0xFFFFFFFF entries in the occupied slots of a full and a short row; half
+    the probes planted members, 0xFFFFFFFF discs among them. The 512-slot
+    layout (2^18 rows, 512 MiB, well beyond the 50 MB L2; int16 lengths)
+    and a narrow row that leaves most of a group's lanes idle."""
     import torch
+
+    from bsgs_tpu_torch.models import table as T
+    from bsgs_tpu_torch.ops import probe_kernel as PK
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + window)
     dense = torch.randint(-(1 << 31), 1 << 31, (rows, window), generator=gen,
                           device=device, dtype=torch.int64).to(torch.int32)
-    dense[7, window // 2:] = -1
+    n = torch.randint(0, window + 1, (rows,), generator=gen, device=device)
+    n[:16] = window
+    n[16:32] = 0
+    n[40] = window // 2
+    dense[torch.arange(window, device=device) >= n[:, None]] = T.DENSE_FILL
+    dense[7, window // 3] = T.DENSE_FILL  # a full row's real entry
+    dense[40, 1] = T.DENSE_FILL  # a short row's real entry
+    table = T.ProbeRows(dense, PK.row_lengths(n, window))
     bucket = torch.randint(0, rows, (m,), generator=gen,
                            device=device).to(torch.int32)
     disc = torch.randint(-(1 << 31), 1 << 31, (m,), generator=gen,
                          device=device, dtype=torch.int64).to(torch.int32)
-    bucket, disc = plant_members(bucket, disc, dense, gen, every=2)
-    return check_probe(f"synthetic window {window}", bucket, disc, dense)
+    bucket, disc = plant_members(bucket, disc, table, gen, every=2)
+    bucket[:4] = torch.tensor([7, 40, 0, 20], dtype=torch.int32)
+    disc[:4] = -1
+    rec = check_probe(f"synthetic window {window}", bucket, disc, table)
+    want = [True, True, False, True]
+    got = whole_row_probe(bucket[:4], disc[:4], dense).tolist()
+    if got != want:
+        raise AssertionError(f"synthetic window {window}: 0xFFFFFFFF discs "
+                             f"against a full row with a real one, a short "
+                             f"row with one, a full row and an empty row "
+                             f"gave {got}")
+    return rec
+
+
+def sweep_probe(side, libs, device) -> dict:
+    """The probe's study (--probe): the w=2^26 table and one phase's
+    stream as check_probe_on_table makes them; the package's kernel (8
+    lanes a probe), its other layouts (8, 16 or 32 lanes a probe, each
+    group walking 1 or 4 probes) and the parent's kernel (one warp a probe
+    reading whole rows), both from PROBE_STUDY_SRC, each held
+    bit-identical to the plain version and timed in turns against the
+    occupied-sector bound and the whole-row one: launches back to back (cuda_ms, as every kernel's time in the
+    run) and one at a time after the L2 is flushed (cuda_ms_cold)."""
+    import torch
+
+    from bsgs_tpu_torch.models import solver as S
+    from bsgs_tpu_torch.ops import _cuda, probe_kernel as PK
+
+    cfg = S.SolverConfig(w=1 << 26)
+    baby = S.build_table(cfg, device=device)
+    check_row_lengths("w=2^26 table", baby)
+    solver = S.Solver(cfg, baby=baby, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    rows = baby.rows
+    bucket, disc = plant_members(*phase_keys(solver, SEED), rows, gen)
+    m = bucket.shape[0]
+    lib = side.load()
+    out = torch.empty((m,), dtype=torch.bool, device=device)
+
+    def parent():
+        err = lib.parent_probe_rows(
+            bucket.data_ptr(), disc.data_ptr(), rows.dense.data_ptr(),
+            out.data_ptr(), m, rows.dense.shape[1] // 4,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent probe launch failed ({err})")
+
+    def layout(lanes, per):
+        err = lib.layout_probe_rows(
+            bucket.data_ptr(), disc.data_ptr(), rows.dense.data_ptr(),
+            rows.row_len.data_ptr(), out.data_ptr(), m,
+            rows.dense.shape[1] // 4, lanes, per,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"probe layout {lanes}x{per} launch failed "
+                               f"({err})")
+
+    if rows.row_len.dtype != torch.uint8:
+        raise AssertionError(f"probe study: {rows.row_len.dtype} lengths")
+    runs = {"parent": parent,
+            "lanes=8 per=1 (package)": lambda: PK.launch_probe_rows(
+                bucket, disc, *rows, out)}
+    for lanes in (8, 16, 32):
+        for per in (1, 4):
+            if (lanes, per) != (8, 1):
+                runs[f"lanes={lanes} per={per}"] = (
+                    lambda lanes=lanes, per=per: layout(lanes, per))
+    want = PK.probe_rows_plain(bucket, disc, *rows)
+    for name, fn in runs.items():
+        out.fill_(False)
+        fn()
+        if not torch.equal(out, want):
+            raise AssertionError(f"probe study {name}: differs from the "
+                                 f"plain version on "
+                                 f"{int((out != want).sum())} probes")
+    need, whole = probe_bytes(bucket, disc, rows)
+    bound_ms = 1e3 * need / HBM_BYTES_PER_S
+    bound_whole = 1e3 * whole / HBM_BYTES_PER_S
+    order = list(runs) + list(reversed(runs))
+    times = collections.defaultdict(list)
+    cold = collections.defaultdict(list)
+    for name in order:
+        times[name].append(cuda_ms(runs[name], reps=20))
+        cold[name].append(cuda_ms_cold(runs[name], reps=10))
+    log(f"probe sweep, m={m}, w=2^26 table (in turns {order}): "
+        + ", ".join(f"{n} {min(v):.4f} ms ({100 * bound_ms / min(v):.0f}%)"
+                    f", L2 cold {min(cold[n]):.4f} ms"
+                    for n, v in times.items())
+        + f"; bound {bound_ms:.4f} ms by the {need / m:.1f} B a probe "
+        f"needs, whole rows {bound_whole:.4f} ms")
+    exe = Path(_cuda._nvcc()).with_name("cuobjdump")
+    regs = {}
+    for path in [p for p in libs if p.name.startswith("libprobe_kernels")] + [
+            side.path]:
+        res = subprocess.run([str(exe), "-res-usage", str(path)],
+                             capture_output=True, text=True, timeout=300,
+                             check=True).stdout
+        for name, body in re.findall(
+                r"Function (\S*probe_rows_kernel\S*):\s*\n\s*([^\n]*)", res):
+            regs[name] = dict((k, int(v)) for k, v in re.findall(
+                r"(REG|STACK|LOCAL):(\d+)", body))
+    log(f"probe sweep registers: {regs}")
+    return dict(m=m, bound_ms=bound_ms, bound_ms_whole_row=bound_whole,
+                bytes_per_probe=need / m, ms=dict(times),
+                ms_l2_cold=dict(cold), registers=regs)
 
 
 def check_streamed_against_device_build(baby, device) -> None:
@@ -1657,8 +2072,10 @@ def check_streamed_against_device_build(baby, device) -> None:
                                      positions="mirror", device=device)
     torch.cuda.synchronize()
     t_build = time.time() - t0
-    if not torch.equal(st.offsets, baby.offsets):
-        raise AssertionError("streamed build: offsets differ")
+    if not (torch.equal(st.offsets, baby.offsets)
+            and torch.equal(st.row_len, baby.row_len)):
+        raise AssertionError("streamed build: offsets or row lengths differ")
+    check_row_lengths("streamed build of the w=2^26 table", st)
     filled = st.pos_dense != 0
     if int(filled.sum()) != baby.w:
         raise AssertionError("streamed build: not every baby has a slot")
@@ -1926,11 +2343,16 @@ def profile_tile_advance(tile: int, device, calls: int = 8) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     # two warm-up steps, and a pause once the trace is active: the tracer
-    # misses launches made just after it starts. A trace is complete when
-    # it holds every launch that the kernel wrappers counted in the active
-    # steps; one that does not is taken again (at most five times). The
-    # check after this function reads only a complete trace.
+    # misses launches made just after it starts, and may file a warm-up
+    # step's launch among the active ones. A trace is complete when it
+    # holds exactly the launches that the kernel wrappers counted in the
+    # active steps; one that does not is taken again (at most five times).
+    # The check after this function reads only a complete trace; the
+    # per-kernel counts of each trace taken again are kept
+    # (discarded_traces), so that a persistent extra launch can be told
+    # from a misfiled warm-up one.
     warmup = 2
+    discarded = []
     for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
@@ -1950,18 +2372,19 @@ def profile_tile_advance(tile: int, device, calls: int = 8) -> dict:
         rows = device_rows(prof)
         traced = sum(e.count for e in rows
                      if any(k in e.key for k in OWN_KERNEL_SYMBOLS))
-        if traced >= sum(counted.values()):
+        if traced == sum(counted.values()):
             break
-        log(f"tile advance [{tile} lanes]: the trace held {traced} of the "
-            f"{sum(counted.values())} launches the wrappers counted "
-            f"(attempt {attempt + 1}); profiling again")
+        discarded.append({e.key[:100]: e.count for e in rows})
+        log(f"tile advance [{tile} lanes]: the trace held {traced} launches "
+            f"where the wrappers counted {sum(counted.values())} (attempt "
+            f"{attempt + 1}, by kernel {discarded[-1]}); profiling again")
     per = sum(e.count for e in rows) / calls
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / calls
     out = dict(tile=tile, host_ms=1e3 * host / calls,
                wall_ms=1e3 * wall / calls, device_ms=dev_ms,
                device_launches=per,
                counted_launches=sum(counted.values()) / calls,
-               trace_attempts=attempt + 1,
+               trace_attempts=attempt + 1, discarded_traces=discarded,
                by_kernel=[dict(kernel=e.key[:100], count=e.count / calls,
                                ms=e.self_device_time_total / 1e3 / calls)
                           for e in rows])
@@ -2124,10 +2547,8 @@ def plant_surviving_slot(baby, cfg, q0, m: int):
 
     pre = ecpy.sub(q0, ecpy.mul(m * cfg.stride))[0] & ((1 << 64) - 1)
     bucket = pre >> (64 - cfg.htsz)
-    free = torch.nonzero(baby.dense[bucket] == T.DENSE_FILL).flatten()
-    col = int(free[0])
+    col = plant_slot(baby, bucket, T._i32(pre >> (32 - cfg.htsz)))
     sh, mk = T._disc_lo_shift(cfg.htsz)
-    baby.dense[bucket, col] = T._i32(pre >> (32 - cfg.htsz))
     baby.pos_lo[bucket, col] = int(T._u16_bits(
         torch.tensor((((pre >> sh) & mk) << 8) | 7)))
     return pre, (bucket, col)
@@ -2512,6 +2933,24 @@ def scans_in_turns(solvers: dict, order, pub, pk: int, epochs: int,
     return rates
 
 
+def check_mesh_probe(label: str, ms, streams, dense) -> None:
+    """A fused MeshSolver's probe (its route's collectives over
+    sharded_table.probe_own_rows, or the replicated table's probe) of one
+    phase's three streams, bit-identical to the whole-row probe of its
+    table (the JAX package's function)."""
+    import torch
+
+    found = 0
+    for bucket, disc in streams:
+        got = ms._probe(bucket, disc)
+        if not torch.equal(got, whole_row_probe(bucket, disc, dense)):
+            raise AssertionError(f"{label}: the probe differs from the "
+                                 f"whole-row probe")
+        found += int(got.sum())
+    log(f"{label}: the probe of one phase's three streams equals the "
+        f"whole-row probe ({found} found)")
+
+
 def mesh_replicated(mesh, solver, path_launches: dict) -> dict:
     """MeshSolver over a replicated w=2^26 table in the group of one: its
     own table and offsets, a planted key of super-epoch 1, counted as the
@@ -2541,6 +2980,8 @@ def mesh_replicated(mesh, solver, path_launches: dict) -> dict:
     log(f"mesh w=2^26 replicated: table, offsets and planted key {key:#x} "
         f"of super-epoch {res.epochs - 1} in {time.time() - t0:.2f} s")
     read_launches("mesh w=2^26", path_launches)
+    check_mesh_probe("mesh w=2^26 replicated", ms,
+                     phase_streams(solver, SEED), base.baby.dense)
     pub = ecpy.mul((1 << 200) + 12345)
     for s in (solver, ms):
         s.solve(pub, pk, pk + cfg.keys_per_epoch - 1, max_epochs=1)
@@ -2572,7 +3013,7 @@ def mesh_sharded(mesh, single, path_launches: dict) -> dict:
     route's epoch."""
     import torch
 
-    from bsgs_tpu_torch.models import solver as S, table as T
+    from bsgs_tpu_torch.models import solver as S
     from bsgs_tpu_torch.ops import _cuda
     from bsgs_tpu_torch.parallel import sharded_table as ST, striped
     from bsgs_tpu_torch.utils import ecpy
@@ -2590,9 +3031,11 @@ def mesh_sharded(mesh, single, path_launches: dict) -> dict:
     if (baby.shard, baby.n_table_shards) != (0, 1) or not (
             torch.equal(baby.dense, single.baby.dense)
             and torch.equal(baby.pos_lo, single.baby.pos_lo)
-            and torch.equal(baby.offsets, single.baby.offsets)):
+            and torch.equal(baby.offsets, single.baby.offsets)
+            and torch.equal(baby.row_len, single.baby.row_len)):
         raise AssertionError("the table built over the mesh differs from the "
                              "single-card streamed table")
+    check_row_lengths("mesh w=2^30 sharded table", baby)
     stats = baby.lookup_fn.stats
     for r in (1, 256, cfg.w, rng.randrange(1, cfg.w)):
         if baby.lookup_positions(ecpy.mul(r)[0]) != [r]:
@@ -2641,7 +3084,12 @@ def mesh_sharded(mesh, single, path_launches: dict) -> dict:
     log(f"mesh w=2^30 sharded: super-epoch 0 decodes to the same "
         f"{len(records['all_gather'])} records through both routes "
         f"{records['all_gather']}")
-    baby.dense[row, col] = T.DENSE_FILL
+    streams = phase_streams(single, SEED)
+    for route in ("all_gather", "all_to_all"):
+        check_mesh_probe(f"mesh w=2^30 sharded, {route} route",
+                         solvers[route], streams, baby.dense)
+    del streams
+    unplant_slot(baby, row, col)
     baby.pos_lo[row, col] = 0
     pub = ecpy.mul((1 << 200) + 12345)
     for s in solvers.values():
@@ -2744,7 +3192,7 @@ def phase_streams(solver, seed: int):
         lanes_w=cfg.lanes_w)
     gen = torch.Generator(device=cx.device)
     gen.manual_seed(seed)
-    plus = plant_members(keys[0].clone(), keys[1].clone(), solver.baby.dense,
+    plus = plant_members(keys[0].clone(), keys[1].clone(), solver.baby.rows,
                          gen)
     hi, lo = PL.x_prefix64(cx.T.long())
     bc, dc = T.bucket_disc(hi[0], lo[0], cfg.htsz)
@@ -2790,16 +3238,26 @@ def partition_w30(single, n: int = 4) -> dict:
         builds.append(dict(seconds=took, peak=peak,
                            dense_bytes=dense.numel() * 4,
                            hint_bytes=hint.numel() * 2))
-        del hint
-        specs.append(ST.ShardedTableSpec(cfg.htsz, cfg.window, n, s, dense,
-                                         entries))
+        part = T.BabyTable(w=cfg.w, htsz=cfg.htsz, window=cfg.window,
+                           offsets=whole.offsets, disc_sorted=None,
+                           pos_sorted=None, dense=dense, pos_lo=hint,
+                           n_table_shards=n, shard=s)
+        check_row_lengths(f"partition: shard {s} of {n}", part)
+        if not torch.equal(part.row_len.long(), cnt):
+            raise AssertionError(f"shard {s} of {n}: row_len differs from "
+                                 f"its build's counts")
+        specs.append(ST.spec_from_presharded(part))
+        del hint, part
     log(f"partition: {n} shards of the w=2^30 table, each equal to its rows "
         f"of the single-card table: {json.dumps(builds)}")
     routes = []
     for label, (bucket, disc) in zip(("+ landings", "- landings",
                                       "centers"), phase_streams(single,
                                                                 SEED)):
-        want = PK.probe_rows(bucket, disc, whole.dense)
+        want = PK.probe_rows(bucket, disc, *whole.rows)
+        if not torch.equal(want, whole_row_probe(bucket, disc, whole.dense)):
+            raise AssertionError(f"the {label} stream: the probe differs "
+                                 f"from the whole-row probe")
         bs, ds = list(bucket.chunk(n)), list(disc.chunk(n))
         rec = dict(stream=label, m=bucket.shape[0], found=int(want.sum()))
         for route, fn in (("all_gather", ST.probe_all_gather_in_process),
@@ -2812,7 +3270,7 @@ def partition_w30(single, n: int = 4) -> dict:
             rec[f"{route}_ms"] = cuda_ms(lambda: fn(bs, ds, specs), 5,
                                          queued=False)
         rec["whole_ms"] = cuda_ms(
-            lambda: PK.probe_rows(bucket, disc, whole.dense), 5,
+            lambda: PK.probe_rows(bucket, disc, *whole.rows), 5,
             queued=False)
         routes.append(rec)
     log(f"partition: both routes over {n} shards equal the whole table's "
@@ -3087,8 +3545,6 @@ def _plant_landings(baby, cfg, cx, cy, picks):
     """Write the discs of the landings (code, t, j) (1: x(M_t + O_j), 2:
     x(M_t - O_j), 5: x(M_t)) into free slots of the table; returns the
     slots, for undoing it."""
-    import torch
-
     from bsgs_tpu_torch.models import table as T
     from bsgs_tpu_torch.ops import field as F
     from bsgs_tpu_torch.utils import ecpy
@@ -3101,11 +3557,8 @@ def _plant_landings(baby, cfg, cx, cy, picks):
               5: lambda: m_pt}[code]()
         pre = pt[0] & ((1 << 64) - 1)
         bucket = pre >> (64 - cfg.htsz)
-        free = torch.nonzero(baby.dense[bucket] == T.DENSE_FILL).flatten()
-        col = int(free[0])
-        baby.dense[bucket, col] = T._i32((pre >> (32 - cfg.htsz))
-                                         & 0xFFFFFFFF)
-        slots.append((bucket, col))
+        slots.append((bucket, plant_slot(
+            baby, bucket, T._i32((pre >> (32 - cfg.htsz)) & 0xFFFFFFFF))))
     return slots
 
 
@@ -3116,7 +3569,7 @@ def unfused_vs_fused(solver, baby) -> dict:
     same set, the planted ones in it."""
     import dataclasses
 
-    from bsgs_tpu_torch.models import giant, solver as S, table as T
+    from bsgs_tpu_torch.models import giant, solver as S
     from bsgs_tpu_torch.utils import ecpy
 
     cfg = solver.cfg
@@ -3139,8 +3592,8 @@ def unfused_vs_fused(solver, baby) -> dict:
                 int(f), cfg.jobs_per_epoch, cfg.n_offsets, s._phases)
                 for f in flat}
     finally:
-        for bucket, col in slots:
-            baby.dense[bucket, col] = T.DENSE_FILL
+        for bucket, col in reversed(slots):
+            unplant_slot(baby, bucket, col)
     if sets["fused"] != sets["unfused"] or not set(picks) <= sets["fused"]:
         raise AssertionError(f"hit records differ: {sets}")
     log(f"unfused vs fused epoch at N=2^18, T=16: the same "
@@ -3271,13 +3724,18 @@ def main() -> int:
     t_start = time.time()
 
     # 1. build (with the side library of the field operations; with
-    # epoch_bwd's study under --epoch-bwd)
-    side = SideLib(study=sys.argv[1:] == ["--epoch-bwd"])
+    # epoch_bwd's study under --epoch-bwd, the probe's under --probe)
+    side = SideLib(study=sys.argv[1:] == ["--epoch-bwd"],
+                   probe_study=sys.argv[1:] == ["--probe"])
     took, libs, costs = build_kernels(side)
     log(f"phase 1: kernels built in {took:.1f} s")
     torch.cuda.synchronize()
     if sys.argv[1:] == ["--builds"]:
         print(json.dumps(build_times(device)))
+        print(card)
+        return 0
+    if side.probe_study:
+        print(json.dumps(sweep_probe(side, libs, device)))
         print(card)
         return 0
     bwd = epoch_bwd_checks(libs, side, costs, device)
@@ -3323,6 +3781,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     if stats.entries != cfg.w or stats.max_bucket > cfg.window:
         raise AssertionError(f"bad table: {stats}")
+    check_row_lengths("w=2^26 table", baby)
     rng = random.Random(SEED)
     for r in (1, cfg.w, rng.randrange(1, cfg.w)):
         if r not in baby.lookup_positions(ecpy.mul(r)[0]):
@@ -3454,6 +3913,7 @@ def main() -> int:
     if (stats.entries != cfg.w or stats.max_bucket > cfg.window
             or baby.lookup_fn is None or baby.pos_lo.dtype != torch.int16):
         raise AssertionError(f"bad streamed table: {stats}")
+    check_row_lengths("w=2^30 table", baby)
     t0 = time.time()
     members = (1, 256, cfg.w, rng.randrange(1, cfg.w))
     for r in members:
@@ -3542,7 +4002,7 @@ def main() -> int:
         f"{', '.join(f'{r:.1f}' for r in rates)} without it; per scan "
         f"{scan_fp.hits_checked} hits checked, 1 residue scan, at the "
         f"scan's end")
-    baby.dense[fp_row, fp_col] = T.DENSE_FILL
+    unplant_slot(baby, fp_row, fp_col)
     baby.pos_lo[fp_row, fp_col] = 0
     torch.cuda.synchronize()
 
@@ -3597,8 +4057,14 @@ def main() -> int:
         ms=main_stream["ms"], plain_ms=main_stream["plain_ms"],
         bound_ms=main_stream["bound_ms"], bound_by="bytes",
         library_ms=None, bound_ms_packed=main_stream["bound_ms"],
-        bound_by_packed="bytes", ms_w30_table=big_stream["ms"],
+        bound_by_packed="bytes",
+        bound_ms_whole_row=main_stream["bound_ms_whole_row"],
+        ms_l2_cold=main_stream["ms_l2_cold"],
+        ms_w30_table=big_stream["ms"],
+        ms_l2_cold_w30_table=big_stream["ms_l2_cold"],
         plain_ms_w30_table=big_stream["plain_ms"],
+        bound_ms_w30_table=big_stream["bound_ms"],
+        bound_ms_whole_row_w30_table=big_stream["bound_ms_whole_row"],
         shapes=probe + probe_big)
     for name, rec in records_big.items():
         records[name]["w30_shapes"] = {

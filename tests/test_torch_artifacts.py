@@ -16,6 +16,7 @@ from bsgs_tpu.utils import artifacts as JA
 from bsgs_tpu_torch import convert
 from bsgs_tpu_torch.models import table as T
 from bsgs_tpu_torch.utils import artifacts as A, ecpy
+from test_torch_probe_kernel import assert_row_lengths
 
 torch.set_num_threads(2)
 
@@ -79,6 +80,20 @@ def test_port_artifact_loads_in_jax(port_tables, kind, tmp_path):
     want = _lookups(table)
     assert _lookups(jt) == want
     assert want[NON_MEMBER] == [] and all(want[r] == [r] for r in MEMBERS)
+
+
+@pytest.mark.parametrize("kind", ["host", "device", "streamed",
+                                  "streamed-rescan"])
+def test_artifact_round_trip_makes_row_lengths(port_tables, kind, tmp_path):
+    """Artifacts hold no row lengths: the loader makes them from the
+    offsets, equal to the saved table's, FILL past them."""
+    table = port_tables[kind]
+    path = str(tmp_path / "t.npz")
+    A.save_baby_table(table, path)
+    assert not any("len" in k for k in np.load(path).files)
+    got = A.load_baby_table(path, device="cpu")
+    assert_row_lengths(got.dense, got.row_len, got.offsets)
+    assert torch.equal(got.row_len, table.row_len)
 
 
 @pytest.mark.parametrize("kind", ["host", "device", "streamed-rescan"])

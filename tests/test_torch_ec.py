@@ -182,7 +182,7 @@ def test_probe_and_probe_x_match_jax():
     assert got.tolist() == [True, True, True, False, False, False, True]
     hi, lo = F.x_prefix64(x)
     np.testing.assert_array_equal(
-        T.probe(hi, lo, baby.dense, htsz=6).numpy(),
+        T.probe(hi, lo, baby.rows, htsz=6).numpy(),
         np.asarray(JT.probe(*JF.x_prefix64(jx), jt.dense, htsz=6)))
 
 

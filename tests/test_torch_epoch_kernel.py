@@ -16,6 +16,7 @@ from bsgs_tpu_torch.models import giant as G
 from bsgs_tpu_torch.ops import epoch_kernel as EK, field as F
 
 from test_epoch_kernel import _setup
+from test_torch_probe_kernel import csr_rows
 
 torch.set_num_threads(2)
 
@@ -138,8 +139,8 @@ def epoch_setup():
                 pres.append(pt[0] & ((1 << 64) - 1))
     table = JT.pack_table(np.array(sorted(pres), dtype=np.uint64),
                           baby.htsz, 16)
-    dense = convert.from_u32(np.asarray(table.dense), "cpu")
-    return baby, ox, oy, cx, cy, cinf, ox_pl, oy_pl, table.dense, dense
+    rows = csr_rows(np.asarray(table.offsets), np.asarray(table.dense))
+    return baby, ox, oy, cx, cy, cinf, ox_pl, oy_pl, table.dense, rows
 
 
 def test_landing_keys_match_jax(epoch_setup):
@@ -159,7 +160,7 @@ def test_landing_keys_match_jax(epoch_setup):
 
 @pytest.mark.parametrize("phases", [1, 2])
 def test_run_epoch_fused_matches_jax(epoch_setup, phases):
-    baby, ox, oy, cx, cy, cinf, ox_pl, oy_pl, dense_j, dense = epoch_setup
+    baby, ox, oy, cx, cy, cinf, ox_pl, oy_pl, dense_j, rows = epoch_setup
     kw = dict(htsz=baby.htsz, chunk_c=2, lanes_w=128, phases=phases)
     j_idx, j_cnt, j_gs = JG.run_epoch_fused(
         cx, cy, cinf, jnp.swapaxes(ox, 0, 1), jnp.swapaxes(oy, 0, 1),
@@ -168,14 +169,14 @@ def test_run_epoch_fused_matches_jax(epoch_setup, phases):
     assert j_cnt > 32  # the 32 planted pairs and the exact lane
     centers = (_i32(np.asarray(cx)), _i32(np.asarray(cy)),
                torch.from_numpy(np.array(cinf)))
-    idx, cnt, gs = G.run_epoch_fused(*centers, ox_pl, oy_pl, dense,
+    idx, cnt, gs = G.run_epoch_fused(*centers, ox_pl, oy_pl, rows,
                                      hit_cap=64, **kw)
     assert gs == j_gs and int(cnt) == j_cnt
     np.testing.assert_array_equal(convert.u32(idx), j_idx)
     # an overflowing buffer keeps the first hit_cap hits in ascending
     # order and the full count, as jnp.nonzero(size=hit_cap) does
     cap = j_cnt - 1
-    idx_o, cnt_o, _ = G.run_epoch_fused(*centers, ox_pl, oy_pl, dense,
+    idx_o, cnt_o, _ = G.run_epoch_fused(*centers, ox_pl, oy_pl, rows,
                                         hit_cap=cap, **kw)
     assert int(cnt_o) == j_cnt
     np.testing.assert_array_equal(convert.u32(idx_o), j_idx[:cap])

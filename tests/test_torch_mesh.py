@@ -28,6 +28,7 @@ from bsgs_tpu_torch import convert
 from bsgs_tpu_torch.models import solver as S, table as T
 from bsgs_tpu_torch.parallel import mesh as M, sharded_table as ST, striped
 from bsgs_tpu_torch.utils import ecpy
+from test_torch_probe_kernel import assert_row_lengths
 
 try:
     from jax import shard_map
@@ -80,6 +81,33 @@ def test_shard_build_matches_jax_sharded_build(n):
                          torch.cumsum(torch.cat(counts), 0)])
     np.testing.assert_array_equal(offsets.numpy(),
                                   np.asarray(jt.offsets).astype(np.int64))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_each_shard_carries_its_row_lengths(n, port_table):
+    """Each shard of the sharded build (its BabyTable over global offsets,
+    and spec_from_presharded of it) holds its own rows' lengths, the diff
+    of the offsets there, FILL past them; shard_table of a whole table
+    slices its lengths with its rows."""
+    whole = T.build_baby_table_streamed(W, HTSZ, window=WINDOW, tile=256,
+                                        chunk=64, positions="rescan",
+                                        device="cpu")
+    bps = (1 << HTSZ) // n
+    for s in range(n):
+        d, h, c = T.build_shard_rows(W, HTSZ, n, s, window=WINDOW, tile=256,
+                                     chunk=64, device="cpu")
+        part = T.BabyTable(w=W, htsz=HTSZ, window=WINDOW,
+                           offsets=whole.offsets, disc_sorted=None,
+                           pos_sorted=None, dense=d, pos_lo=h,
+                           n_table_shards=n, shard=s)
+        assert_row_lengths(part.dense, part.row_len, whole.offsets,
+                           s * bps)
+        assert torch.equal(part.row_len.long(), c)
+        spec = ST.spec_from_presharded(part)
+        assert spec.row_len is part.row_len
+        own = ST.shard_table(port_table, n, s)
+        assert_row_lengths(own.dense, own.row_len, port_table.offsets,
+                           s * bps)
 
 
 def test_shard_build_equals_the_single_card_rescan_rows():
@@ -155,7 +183,7 @@ def test_probe_routes_match_jax(route, n, jax_table, port_table):
     np.testing.assert_array_equal(got, want)
     assert got[:128].all() and not got[128:].any()
     whole = T.probe_keys(convert.from_u32(b, "cpu"),
-                         convert.from_u32(d, "cpu"), port_table.dense)
+                         convert.from_u32(d, "cpu"), port_table.rows)
     np.testing.assert_array_equal(got, whole.numpy())
 
 
@@ -293,8 +321,9 @@ def test_sharded_build_of_one_rank_is_the_single_card_rescan_table(
     want = T.build_baby_table_streamed(W, HTSZ, window=WINDOW,
                                        positions="rescan", device="cpu")
     assert (got.shard, got.n_table_shards) == (0, 1)
-    for name in ("dense", "pos_lo", "offsets"):
+    for name in ("dense", "pos_lo", "offsets", "row_len"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert_row_lengths(got.dense, got.row_len, got.offsets)
     assert [got.lookup_positions(ecpy.mul(r)[0]) for r in (1, 77, W)] == [
         [1], [77], [W]]
     assert got.lookup_positions(ecpy.mul(W + 1)[0]) == []
@@ -341,7 +370,7 @@ def test_unfused_mesh_solver_of_one_rank(one_rank, port_table):
     hi, lo = convert.from_u32(hi, "cpu"), convert.from_u32(lo, "cpu")
     probe = ST.make_sharded_probe(ST.shard_table(port_table, 1), one_rank)
     assert probe(hi, lo).tolist() == [True, True, False, True]
-    assert torch.equal(probe(hi, lo), T.probe(hi, lo, port_table.dense,
+    assert torch.equal(probe(hi, lo), T.probe(hi, lo, port_table.rows,
                                               htsz=HTSZ))
     k = pk + cfg.keys_per_epoch + 777
     for kw in ({}, dict(shard_baby_table=True)):
@@ -374,7 +403,7 @@ def test_alltoall_probe_of_one_rank_is_two_collectives(one_rank, port_table,
     calls = _count_collectives(one_rank, monkeypatch)
     got = ST.make_alltoall_probe_bd(spec, one_rank)(b, d)
     assert calls == ["all_to_all"] * 2
-    assert torch.equal(got, T.probe_keys(b, d, port_table.dense))
+    assert torch.equal(got, T.probe_keys(b, d, port_table.rows))
     assert got[:128].all() and not got[128:].any()
     hi, lo = JF.x_prefix64(jnp.asarray(JF.to_limbs_batch(
         [ecpy.mul(k)[0] for k in (1, 2, 300, 256)])))

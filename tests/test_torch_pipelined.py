@@ -29,7 +29,7 @@ def test_pipelined_steps_and_flush_match_jax(epoch_setup):  # noqa: F811
     """Three epochs of _setup's geometry (the same centers shifted one
     job each time): the priming step, a step that probes epoch 0's keys,
     and the flush of epoch 1's, against bsgs_tpu's."""
-    baby, ox, oy, cx, cy, cinf, ox_pl, oy_pl, dense_j, dense = epoch_setup
+    baby, ox, oy, cx, cy, cinf, ox_pl, oy_pl, dense_j, rows = epoch_setup
     htsz = baby.htsz
     epochs = [(cx, cy, cinf), (cx[1:], cy[1:], cinf[1:])]
     epochs[1] = tuple(jnp.concatenate([a, a[:1]]) for a in epochs[1])
@@ -44,7 +44,7 @@ def test_pipelined_steps_and_flush_match_jax(epoch_setup):  # noqa: F811
             **KW)
         got = G.pipelined_step(
             *p_prev, e > 0, _i32(np.asarray(ecx)), _i32(np.asarray(ecy)),
-            ox_pl, oy_pl, dense, htsz=htsz, **KW)
+            ox_pl, oy_pl, rows, htsz=htsz, **KW)
         for w, g in zip(want[:4], got[:4]):
             np.testing.assert_array_equal(convert.u32(g), np.asarray(w))
         assert int(got[4]) == int(want[4]) and int(got[4]) == (
@@ -54,7 +54,7 @@ def test_pipelined_steps_and_flush_match_jax(epoch_setup):  # noqa: F811
     assert int(want[4]) > 32  # epoch 0's planted pairs and exact lane
     w_idx, w_cnt = JG.probe_keys_flush(*j_prev, dense_j, htsz=htsz,
                                        hit_cap=64)
-    idx, cnt = G.probe_keys_flush(*p_prev, dense, hit_cap=64)
+    idx, cnt = G.probe_keys_flush(*p_prev, rows, hit_cap=64)
     np.testing.assert_array_equal(convert.u32(idx), np.asarray(w_idx))
     assert int(cnt) == int(w_cnt) > 0
 

@@ -193,14 +193,17 @@ RESCAN_GEOM = dict(w=256, htsz=6, n_offsets=8, jobs_per_epoch=2, window=16,
 RESCAN_PK = 1 << 21
 
 
-def _plant_false_positive(dense, cfg, q0, m):
-    """A dense entry with the disc of giant index m's landing, in a free
-    slot of its bucket (tests/test_solver.py's _plant_fp on a numpy
-    matrix)."""
+def _plant_false_positive(dense, offsets, cfg, q0, m):
+    """A dense entry with the disc of giant index m's landing, in the first
+    free slot of its bucket (tests/test_solver.py's _plant_fp on a numpy
+    matrix), counted in the bucket's CSR offsets as a built entry is (the
+    port's probe reads a row's first offsets-diff slots)."""
     pre = ecpy.sub(q0, ecpy.mul(m * cfg.stride))[0] & ((1 << 64) - 1)
     bucket = pre >> (64 - cfg.htsz)
     free = np.where(dense[bucket] == JT.DENSE_FILL)[0]
+    assert free[0] == offsets[bucket + 1] - offsets[bucket]
     dense[bucket, free[0]] = np.uint32((pre >> (32 - cfg.htsz)) & 0xFFFFFFFF)
+    offsets[bucket + 1:] += 1
 
 
 @pytest.fixture(scope="module")
@@ -217,8 +220,9 @@ def rescan_case():
     pub = ecpy.mul(k)
     q0 = ecpy.sub(pub, ecpy.mul(RESCAN_PK))
     dense = np.asarray(jt.dense).copy()
+    offsets = np.asarray(jt.offsets).copy()
     for m in (5, 70):
-        _plant_false_positive(dense, jcfg, q0, m)
+        _plant_false_positive(dense, offsets, jcfg, q0, m)
     jt.dense = jnp.asarray(dense)
     pke = RESCAN_PK + 4 * jcfg.keys_per_epoch - 1
     want = JS.Solver(jcfg, baby=jt).solve(pub, RESCAN_PK, pke)
@@ -227,7 +231,7 @@ def rescan_case():
         JS.Solver(dataclasses.replace(jcfg, verify_defer_epochs=1), baby=jt),
         pub, pke)
     baby = convert.baby_table(
-        w=jt.w, htsz=jt.htsz, window=jt.window, offsets=jt.offsets,
+        w=jt.w, htsz=jt.htsz, window=jt.window, offsets=offsets,
         dense=dense, pos_lo=np.asarray(jt.pos_lo), tile=64, device="cpu")
     return dict(k=k, pub=pub, pke=pke, want=want, baby=baby,
                 want_events=want_events)

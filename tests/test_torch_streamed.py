@@ -20,6 +20,7 @@ from bsgs_tpu.models import table as JT
 from bsgs_tpu_torch import convert
 from bsgs_tpu_torch.models import table as T
 from bsgs_tpu_torch.utils import ecpy
+from test_torch_probe_kernel import assert_row_lengths
 
 torch.set_num_threads(2)
 
@@ -120,13 +121,21 @@ def test_table_stats_of_a_streamed_table(built):
     assert got.entries == 512
 
 
+@pytest.mark.parametrize("positions", ["mirror", "rescan"])
+def test_streamed_builds_carry_row_lengths(built, positions):
+    """The streamed build (mirror and rescan positions, chunks flushed
+    mid-bucket): row_len is the diff of the offsets, FILL past it."""
+    _, pt = built("w512", positions)
+    assert_row_lengths(pt.dense, pt.row_len, pt.offsets)
+
+
 def test_streamed_table_probes_members_only(built):
     _, pt = built("w256", "rescan")
     xs = [ecpy.mul(r)[0] & MASK64 for r in list(range(1, 257)) + [300, 999]]
     hi = torch.tensor([x >> 32 for x in xs])
     lo = torch.tensor([x & 0xFFFFFFFF for x in xs])
     b, d = T.bucket_disc(hi, lo, pt.htsz)
-    found = T.probe_keys(T.PL.u32_bits(b), T.PL.u32_bits(d), pt.dense)
+    found = T.probe_keys(T.PL.u32_bits(b), T.PL.u32_bits(d), pt.rows)
     assert found[:256].all() and not found[256:].any()
 
 

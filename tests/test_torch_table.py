@@ -14,6 +14,7 @@ from bsgs_tpu.models import table as JT
 from bsgs_tpu_torch import convert
 from bsgs_tpu_torch.models import table as T
 from bsgs_tpu_torch.utils import ecpy
+from test_torch_probe_kernel import assert_row_lengths, occupied_lengths
 
 torch.set_num_threads(2)
 
@@ -34,6 +35,28 @@ def test_device_build_matches_jax(tables, field):
     assert (pt.w, pt.htsz, pt.window) == (jt.w, jt.htsz, jt.window)
     np.testing.assert_array_equal(convert.u32(getattr(pt, field)),
                                   np.asarray(getattr(jt, field)))
+
+
+def test_device_and_host_builds_carry_row_lengths(tables):
+    """The device build and the host pack: row_len is the diff of the
+    offsets, with FILL past it in every row, and the probe through it
+    answers as bsgs_tpu's whole-row probe of the same table."""
+    jt, pt = tables
+    host = T.build_baby_table(W_BUILD, pt.htsz, window=16, tile=1024,
+                              device="cpu")
+    for t in (pt, host):
+        assert_row_lengths(t.dense, t.row_len, t.offsets)
+        assert t.rows.row_len is t.row_len
+    rng = np.random.default_rng(4)
+    b = rng.integers(0, 1 << pt.htsz, 4096).astype(np.uint32)
+    d = np.where(rng.random(4096) < 0.5, np.asarray(jt.disc_sorted)[
+        rng.integers(0, W_BUILD, 4096)], 0xFFFFFFFF).astype(np.uint32)
+    want = np.asarray(JT.probe_keys(jnp.asarray(b), jnp.asarray(d),
+                                    jt.dense))
+    got = T.probe_keys(convert.from_u32(b, "cpu"), convert.from_u32(d, "cpu"),
+                       pt.rows)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < 4096
 
 
 def test_table_stats_match_jax(tables):
@@ -84,13 +107,14 @@ def probe_case():
                                     jnp.asarray(dense)))
     assert 0 < want.sum() < m
     port = [convert.from_u32(a, "cpu") for a in (bucket, disc, dense)]
-    return port, want
+    return port + [occupied_lengths(dense)], want
 
 
 def test_probe_keys_matches_jax(probe_case):
-    (bucket, disc, dense), want = probe_case
-    np.testing.assert_array_equal(T.probe_keys(bucket, disc, dense).numpy(),
-                                  want)
+    (bucket, disc, dense, row_len), want = probe_case
+    np.testing.assert_array_equal(
+        T.probe_keys(bucket, disc, T.ProbeRows(dense, row_len)).numpy(),
+        want)
 
 
 @pytest.mark.parametrize("w,window", [(1 << 26, 128), (4096, 128),

@@ -16,6 +16,8 @@ from bsgs_tpu_torch.models import giant as G, solver as S
 from bsgs_tpu_torch.ops import epoch_kernel as EK, field as F
 from bsgs_tpu_torch.utils import codecs, ecpy
 
+from test_torch_probe_kernel import csr_rows
+
 torch.set_num_threads(2)
 
 W, HTSZ, WINDOW = 64, 6, 16
@@ -47,14 +49,15 @@ def epoch_case():
     ox, oy = _limbs(offs)
     cx, cy = _limbs(centers)
     return dict(table=table, ox=ox, oy=oy, cx=cx, cy=cy, cinf=cinf,
-                dense=convert.from_u32(np.asarray(table.dense), "cpu"))
+                rows=csr_rows(np.asarray(table.offsets),
+                             np.asarray(table.dense)))
 
 
 def _port_epoch(c, hit_cap):
     t = [torch.from_numpy(c[k].astype(np.int64))
          for k in ("cx", "cy", "ox", "oy")]
     return G.run_epoch(t[0], t[1], torch.from_numpy(c["cinf"]), t[2], t[3],
-                       c["dense"], htsz=HTSZ, hit_cap=hit_cap)
+                       c["rows"], htsz=HTSZ, hit_cap=hit_cap)
 
 
 def test_run_epoch_matches_jax(epoch_case):

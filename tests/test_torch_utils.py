@@ -179,15 +179,17 @@ def test_tuner_range_cap_and_flags():
 
 def test_tuner_layout_at_the_two_paths():
     """The one-shot layout at w=2^26 and the streamed rescan layout at
-    w=2^30: dense 4 B a slot, plus CSR 8 B a key or a 2 B hint a slot;
-    the transients from the constants measured on the card."""
+    w=2^30: dense 4 B a slot, plus CSR 8 B a key or a 2 B hint a slot,
+    offsets 4 B and row lengths 1 B a bucket; the transients from the
+    constants measured on the card."""
     a = tuner.plan(1 << 26)
     assert (a.htsz, a.window, a.streamed_build) == (20, 128, False)
     assert a.est_table_bytes == (1 << 20) * 128 * 4 + 8 * (1 << 26) + 4 * (
-        (1 << 20) + 1)
+        (1 << 20) + 1) + (1 << 20)
     b = tuner.plan(1 << 30)
     assert (b.htsz, b.streamed_build) == (24, True)
-    assert b.est_table_bytes == (1 << 24) * 128 * 6 + 4 * ((1 << 24) + 1)
+    assert b.est_table_bytes == (1 << 24) * 128 * 6 + 4 * ((1 << 24) + 1) + (
+        1 << 24)
     assert b.est_build_peak_bytes - b.est_table_bytes == int(
         tuner.STREAMED_BUILD_BYTES_PER_BUCKET * (1 << 24))
     assert a.est_build_peak_bytes - a.est_table_bytes == \

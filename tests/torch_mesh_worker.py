@@ -23,6 +23,7 @@ import torch  # noqa: E402
 
 from bsgs_tpu_torch import convert  # noqa: E402
 from bsgs_tpu_torch.models import solver as S, table as T  # noqa: E402
+from bsgs_tpu_torch.ops import probe_kernel as PK  # noqa: E402
 from bsgs_tpu_torch.parallel import (  # noqa: E402
     mesh as M, sharded_table as ST, striped)
 from bsgs_tpu_torch.utils import ecpy  # noqa: E402
@@ -63,10 +64,14 @@ def route_checks(mesh, baby, p):
     flat = torch.arange(3 * n, dtype=torch.int32) + 100 * r
     rows = (torch.arange(6 * n, dtype=torch.uint8) + 50 * r).view(2 * n, 3)
     spec = ST.spec_from_presharded(baby)
-    specs = [ST.ShardedTableSpec(
-        baby.htsz, baby.window, n, s, T.build_shard_rows(
-            baby.w, baby.htsz, n, s, window=baby.window, device="cpu")[0],
-        spec.shard_entries) for s in range(n)]
+    specs = []
+    for s in range(n):
+        dense, _, counts = T.build_shard_rows(baby.w, baby.htsz, n, s,
+                                              window=baby.window,
+                                              device="cpu")
+        specs.append(ST.ShardedTableSpec(
+            baby.htsz, baby.window, n, s, dense,
+            PK.row_lengths(counts, baby.window), spec.shard_entries))
 
     def share(name):
         keys = [convert.from_u32(np.array(k, dtype=np.uint32), "cpu")
