@@ -10,11 +10,18 @@
 // words, which compile to half the instructions of schoolbook rows; the
 // section above mad_pairs says why.
 //
-// The public layout stays the port's planar one: a (16, M) int32 plane of
-// 16-bit limbs. fe_load packs limb pairs (2i, 2i+1) into one u32 and
-// fe_store splits them again, so the conversion happens only at a kernel's
-// boundary. Neighbouring threads take neighbouring columns: each limb row
-// is read and written coalesced.
+// Two layouts reach the kernels. The planar one, a (16, M) int32 plane of
+// 16-bit limbs, is the JAX package's: the inversion's planes (fermat and
+// the Montgomery plane entry, the chain totals) keep it, and fe_load joins
+// limb pairs (2i, 2i+1) into one u32 while fe_store splits them again. The
+// packed one, a (8, M) int32 plane whose row i holds word i of each element
+// (limb 2i | limb 2i+1 << 16, the Fe register form), is what the planes
+// that live only inside an epoch or a tile advance use: the offsets, the
+// centers, the epoch's pre, the tile's points, its pre and its inverses
+// (fe_load_packed, fe_store_packed). An element moves 32 bytes there, 64 in
+// the planar layout, where half of the bytes are zero high halves.
+// Neighbouring threads take neighbouring columns: each row is read and
+// written coalesced, 128 bytes a warp.
 //
 // Every result is canonical (< p): the probe keys are the low 64 bits of
 // x, and a non-canonical x would change them.
@@ -64,6 +71,50 @@ __device__ __forceinline__ void fe_store(int32_t* __restrict__ plane,
     plane[(2 * i) * stride + col] = (int32_t)(a.v[i] & 0xFFFFu);
     plane[(2 * i + 1) * stride + col] = (int32_t)(a.v[i] >> 16);
   }
+}
+
+// The element whose word 0 is at p in a packed plane, the next words step
+// bytes apart (4 times the plane's row stride).
+__device__ __forceinline__ Fe fe_load_packed(const int32_t* __restrict__ p,
+                                             uint64_t step) {
+  const char* a = (const char*)p;
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    r.v[i] = (uint32_t)__ldg((const int32_t*)a);
+    a += step;
+  }
+  return r;
+}
+
+__device__ __forceinline__ void fe_store_packed(int32_t* __restrict__ p,
+                                                uint64_t step, const Fe& a) {
+  char* q = (char*)p;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    *(int32_t*)q = (int32_t)a.v[i];
+    q += step;
+  }
+}
+
+// Column col of a plane of width M in either layout.
+template <bool kPacked>
+__device__ __forceinline__ Fe fe_load_at(const int32_t* __restrict__ plane,
+                                         long long M, long long col) {
+  if constexpr (kPacked)
+    return fe_load_packed(plane + col, 4ull * M);
+  else
+    return fe_load(plane + col, 4ull * M);
+}
+
+template <bool kPacked>
+__device__ __forceinline__ void fe_store_at(int32_t* __restrict__ plane,
+                                            long long M, long long col,
+                                            const Fe& a) {
+  if constexpr (kPacked)
+    fe_store_packed(plane + col, 4ull * M, a);
+  else
+    fe_store(plane, M, col, a);
 }
 
 __device__ __forceinline__ Fe fe_one() {

@@ -40,11 +40,15 @@
 // The points entry (kPoints) forms each element in registers from the
 // tile's points and the step column: den = Cx - x, or 2y on the doubling
 // lanes x == Cx (generation meets P == +C, never P == -C), reading ys only
-// on those lanes. So the table build's tile never writes a den plane.
+// on those lanes. So the table build's tile never writes a den plane. Its
+// planes are packed (field.cuh): xs, ys, the step column, pre and the
+// inverses, 32 B an element; the totals stay (16, T) planes, which the
+// inversion takes as they are. The plane entry, the inversion tree's fold,
+// keeps the (16, M) layout throughout.
 //
-// What bounds them: the function is bound by bytes (forward: one plane read
-// and one written, 128 B per element as (16, M) int32 limb planes, against
-// one multiply; backward: two read and one written against two), but the
+// What bounds them: the function is bound by bytes (forward: one element
+// read and one written, 64 B at 32 B an element, against one multiply;
+// backward: two read and one written against two), but the
 // split costs multiplies the serial walk does not make: at the table
 // tile's layout (chains of 16 in 8 segments of 2 positions, blocks of
 // 32 x 8 threads) the forward pass makes about 2.1 multiplies per element
@@ -89,11 +93,11 @@ __device__ __forceinline__ Fe mont_elem(const int32_t* __restrict__ v,
                                         const Fe& cx, long long M,
                                         long long col) {
   if (col >= M) return fe_one();
-  const Fe x = fe_load(v + col, 4ull * M);
+  const Fe x = fe_load_at<kPoints>(v, M, col);
   if (!kPoints) return x;
   const Fe d = sub_mod(cx, x);
   if (!fe_is_zero(d)) return d;
-  const Fe y = fe_load(ys + col, 4ull * M);
+  const Fe y = fe_load_at<kPoints>(ys, M, col);
   return add_mod(y, y);
 }
 
@@ -117,7 +121,8 @@ __device__ __forceinline__ MontPlace mont_place(int L, int W) {
 }
 
 // Forward pass. v: the plane (or xs), ys and cx: the points entry's; pre
-// (16, M); tot (16, T) with T = blocks * W.
+// (16, M), packed (8, M) in the points entry; tot (16, T) with T =
+// blocks * W.
 template <int L, bool kPoints>
 __global__ void __launch_bounds__(kMontLanes * kMontMaxSegments)
     mont_fwd_kernel(const int32_t* __restrict__ v,
@@ -128,7 +133,7 @@ __global__ void __launch_bounds__(kMontLanes * kMontMaxSegments)
   __shared__ MontScratch sm;
   const MontPlace p = mont_place(L, W);
   Fe cx;
-  if (kPoints) cx = fe_load(cxp, 4);
+  if (kPoints) cx = fe_load_packed(cxp, 4);
   Fe loc[L];
 #pragma unroll
   for (int i = 0; i < L; ++i)
@@ -166,11 +171,12 @@ __global__ void __launch_bounds__(kMontLanes * kMontMaxSegments)
     const long long col = p.base + (long long)(p.s * L + i) * W;
     if (col >= M) break;
     const Fe r = first ? loc[i] : (i == 0 ? off : mul_mod(off, loc[i]));
-    fe_store(pre, M, col, r);
+    fe_store_at<kPoints>(pre, M, col, r);
   }
 }
 
-// Backward pass: out = 1/element at every column below M.
+// Backward pass: out = 1/element at every column below M (pre and out
+// packed in the points entry).
 template <int L, bool kPoints>
 __global__ void __launch_bounds__(kMontLanes * kMontMaxSegments)
     mont_bwd_kernel(const int32_t* __restrict__ v,
@@ -183,13 +189,13 @@ __global__ void __launch_bounds__(kMontLanes * kMontMaxSegments)
   __shared__ MontScratch sm;
   const MontPlace p = mont_place(L, W);
   Fe cx;
-  if (kPoints) cx = fe_load(cxp, 4);
+  if (kPoints) cx = fe_load_packed(cxp, 4);
   Fe e[L], pr[L];
 #pragma unroll
   for (int i = 0; i < L; ++i) {
     const long long col = p.base + (long long)(p.s * L + i) * W;
     e[i] = mont_elem<kPoints>(v, ys, cx, M, col);
-    pr[i] = col < M ? fe_load(pre + col, 4ull * M) : fe_one();
+    pr[i] = col < M ? fe_load_at<kPoints>(pre, M, col) : fe_one();
   }
   Fe acc = e[0];
 #pragma unroll
@@ -217,7 +223,7 @@ __global__ void __launch_bounds__(kMontLanes * kMontMaxSegments)
 #pragma unroll
   for (int i = L - 1; i >= 0; --i) {
     const long long col = p.base + (long long)(p.s * L + i) * W;
-    if (col < M) fe_store(out, M, col, mul_mod(acc, pr[i]));
+    if (col < M) fe_store_at<kPoints>(out, M, col, mul_mod(acc, pr[i]));
     if (i > 0) acc = mul_mod(acc, e[i]);
   }
 }

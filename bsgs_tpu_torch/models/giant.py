@@ -7,10 +7,13 @@ compacts the hits without making the host wait for the device. Three
 forms:
 
 - the fused epoch (``fused_epoch_probes``, ``run_epoch_fused``): the epoch
-  kernels (ops/epoch_kernel.epoch_landing_keys) emit (bucket, disc) keys,
-  and the probe kernel (ops/probe_kernel.probe_rows) answers them: nine
-  probe launches per epoch at 4 phases, two landing streams per phase and
-  the centers. Its chain layout must divide N (solver.chain_layout);
+  kernels (ops/epoch_kernel.epoch_landing_keys_packed) emit (bucket, disc)
+  keys, and the probe kernel (ops/probe_kernel.probe_rows) answers them:
+  nine probe launches per epoch at 4 phases, two landing streams per phase
+  and the centers. It takes the centers and the offsets as packed planes
+  (ops/planar.py: (8, T) and (8, N) int32 words), so a phase's centers
+  are a column slice of the epoch's, copied nowhere. Its chain layout must
+  divide N (solver.chain_layout);
 - the unfused epoch (``epoch_probes``, ``run_epoch``), for any N: the
   row-major field/ec surface over (T*N, 16) limbs with one batch inversion
   of every denominator (ec.batch_inv: the Montgomery and inversion
@@ -160,16 +163,22 @@ def dense_probe(rows):
     return lambda bucket, disc: T.probe_keys(bucket, disc, rows)
 
 
-def fused_epoch_probes(centers_x, centers_y, centers_inf, ox_pl, oy_pl,
-                       probe, *, htsz: int, chunk_c: int = EK.CHUNK_C,
-                       lanes_w: int = EK.LANES_W, hit_cap: int = 512,
-                       phases: int = 1):
+def center_keys(cx, htsz: int):
+    """The (bucket, disc) probe keys of packed centers (8, T): words 1 and 0
+    are the hi and lo halves of x's low 64 bits."""
+    return T.prefix_keys(cx[1], cx[0], htsz)
+
+
+def fused_epoch_probes(cx, cy, centers_inf, ox, oy, probe, *, htsz: int,
+                       chunk_c: int = EK.CHUNK_C, lanes_w: int = EK.LANES_W,
+                       hit_cap: int = 512, phases: int = 1):
     """One epoch probed through ``probe`` (bucket, disc) -> found: a
     dense_probe, or parallel/sharded_table's collective probe of a table
     split over ranks (bsgs_tpu passes one closure per stream; in the port
-    the three streams take the same one). Centers are rows (T, 16) int32
-    and centers_inf (T,) bool; offsets are planar (16, N). Each landing
-    stream of a phase is one probe.
+    the three streams take the same one). Centers are packed (8, T) int32
+    planes (rows of a wider plane may be passed as they are) and
+    centers_inf (T,) bool; offsets are packed (8, N). Each landing stream
+    of a phase is one probe.
 
     ``phases`` splits the T jobs into groups whose key planes are computed
     and probed one after another, so a phase's (8, T/phases*N) plane is
@@ -178,38 +187,35 @@ def fused_epoch_probes(centers_x, centers_y, centers_inf, ox_pl, oy_pl,
 
     Returns (hit flat-indices (hit_cap,) int32 FILL-padded, (1,) count).
     """
-    t_jobs = centers_x.shape[0]
+    t_jobs = cx.shape[1]
     if t_jobs % phases:
         phases = 1
     per = t_jobs // phases
     parts = []
     for p in range(phases):
         sl = slice(p * per, (p + 1) * per)
-        keys = EK.epoch_landing_keys(
-            centers_x[sl].T.contiguous(), centers_y[sl].T.contiguous(),
-            ox_pl, oy_pl, htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w,
-        )
+        keys = EK.epoch_landing_keys_packed(
+            cx[:, sl], cy[:, sl], ox, oy, htsz=htsz, chunk_c=chunk_c,
+            lanes_w=lanes_w)
         exact = keys[4] != 0
         found_p = probe(keys[0], keys[1])
         found_m = probe(keys[2], keys[3])
         parts += [found_p & ~exact, found_m & ~exact, exact]
-    found_c = probe(*T.prefix_keys(*F.x_prefix64(centers_x), htsz))
+    found_c = probe(*center_keys(cx, htsz))
     return _masks_to_hits(parts + [found_c | centers_inf], hit_cap)
 
 
-def run_epoch_fused(centers_x, centers_y, centers_inf, ox_pl, oy_pl, rows,
-                    *, htsz: int, chunk_c: int = EK.CHUNK_C,
-                    lanes_w: int = EK.LANES_W, hit_cap: int = 512,
-                    phases: int = 1):
-    """The single-device epoch: fused_epoch_probes' hits through
-    dense_probe of the table's ProbeRows, with the count as a 0-d tensor,
-    and giant_steps, the probed landings (2 per offset and center pair plus
-    each center)."""
+def run_epoch_fused(cx, cy, centers_inf, ox, oy, rows, *, htsz: int,
+                    chunk_c: int = EK.CHUNK_C, lanes_w: int = EK.LANES_W,
+                    hit_cap: int = 512, phases: int = 1):
+    """The single-device epoch: fused_epoch_probes' hits (packed centers
+    and offsets) through dense_probe of the table's ProbeRows, with the
+    count as a 0-d tensor, and giant_steps, the probed landings (2 per
+    offset and center pair plus each center)."""
     idxs, cnt = fused_epoch_probes(
-        centers_x, centers_y, centers_inf, ox_pl, oy_pl, dense_probe(rows),
-        htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w, hit_cap=hit_cap,
-        phases=phases)
-    return idxs, cnt[0], (2 * ox_pl.shape[1] + 1) * centers_x.shape[0]
+        cx, cy, centers_inf, ox, oy, dense_probe(rows), htsz=htsz,
+        chunk_c=chunk_c, lanes_w=lanes_w, hit_cap=hit_cap, phases=phases)
+    return idxs, cnt[0], (2 * ox.shape[1] + 1) * cx.shape[1]
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +234,8 @@ def probe_stream(device) -> torch.cuda.Stream:
 
 def probe_keys_flush(keys, bc, dc, cinf, rows, *, hit_cap: int = 512):
     """Probe one epoch's key bundle (its (8, T*N) key plane from
-    epoch_landing_keys, with phases = 1, and its centers' keys) against a
+    epoch_landing_keys_packed, with phases = 1, and its centers' keys)
+    against a
     table's ProbeRows: the hits in decode_flat's layout and the count as a
     0-d tensor. Drains the last bundle of a pipelined scan."""
     exact = keys[4] != 0
@@ -241,12 +248,13 @@ def probe_keys_flush(keys, bc, dc, cinf, rows, *, hit_cap: int = 512):
 
 
 def pipelined_step(prev_keys, prev_bc, prev_dc, prev_cinf, prev_valid,
-                   centers_x, centers_y, ox_pl, oy_pl, rows, *, htsz: int,
+                   cx, cy, ox, oy, rows, *, htsz: int,
                    chunk_c: int = EK.CHUNK_C, lanes_w: int = EK.LANES_W,
                    hit_cap: int = 512):
     """One step of a pipelined scan: the probe of the PREVIOUS epoch's key
-    bundle (probe_keys_flush) and THIS epoch's keys (epoch_landing_keys,
-    phases = 1, and its centers' keys). prev_valid False (the priming
+    bundle (probe_keys_flush) and THIS epoch's keys
+    (epoch_landing_keys_packed, phases = 1, on packed centers (8, T) and
+    offsets (8, N), and its centers' keys). prev_valid False (the priming
     step) probes nothing and reports no hits.
 
     On the card the probe runs on a second stream (probe_stream), after
@@ -257,7 +265,7 @@ def pipelined_step(prev_keys, prev_bc, prev_dc, prev_cinf, prev_valid,
     halves run one after the other.
 
     Returns (keys, bc, dc, idxs_prev, cnt_prev)."""
-    dev = centers_x.device
+    dev = cx.device
     done = None
     if not prev_valid:
         idxs = torch.full((hit_cap,), FILL, dtype=torch.int32, device=dev)
@@ -279,10 +287,9 @@ def pipelined_step(prev_keys, prev_bc, prev_dc, prev_cinf, prev_valid,
     else:
         idxs, cnt = probe_keys_flush(prev_keys, prev_bc, prev_dc, prev_cinf,
                                      rows, hit_cap=hit_cap)
-    keys = EK.epoch_landing_keys(
-        centers_x.T.contiguous(), centers_y.T.contiguous(), ox_pl, oy_pl,
-        htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w)
-    bc, dc = T.prefix_keys(*F.x_prefix64(centers_x), htsz)
+    keys = EK.epoch_landing_keys_packed(cx, cy, ox, oy, htsz=htsz,
+                                        chunk_c=chunk_c, lanes_w=lanes_w)
+    bc, dc = center_keys(cx, htsz)
     if done is not None:
         torch.cuda.current_stream(dev).wait_event(done)
     return keys, bc, dc, idxs, cnt

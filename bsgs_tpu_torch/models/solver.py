@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import ec, epoch_kernel as EK, field as F
+from ..ops import ec, epoch_kernel as EK, field as F, planar as P
 from ..utils import ecpy
 from . import checker, giant, table as tbl
 
@@ -268,14 +268,18 @@ class Solver:
         # an unfused or pipelined epoch is one block of decode_flat's layout
         self._phases = cfg.phases if self.fused and not self._pipelined \
             else 1
-        # Giant offsets O_j = j*S*G, j = 1..N, as planar (16, N) planes
-        # (the fill doubles, so it runs to the next power of two); the
-        # unfused epoch reads them row-major, as (N, 16) int64 views.
+        # Giant offsets O_j = j*S*G, j = 1..N, filled as packed (8, N)
+        # planes (the fill doubles, so it runs to the next power of two),
+        # which the fused epoch reads; unpacked once into planar (16, N)
+        # planes for the checks and the unfused epoch, which reads them
+        # row-major, as (N, 16) int64 views.
         s_g = ecpy.mul(cfg.stride)
-        ox, oy = EK.fill_multiples_planar(
+        ox, oy = EK.fill_multiples_packed(
             s_g, s_g, 1 << (n - 1).bit_length(), device=self.device)
-        self.ox_pl = ox[:, :n].contiguous()
-        self.oy_pl = oy[:, :n].contiguous()
+        self.ox_pk = ox[:, :n].contiguous()
+        self.oy_pk = oy[:, :n].contiguous()
+        self.ox_pl = P.unpack_planes(self.ox_pk)
+        self.oy_pl = P.unpack_planes(self.oy_pk)
         if not self.fused:
             self.ox, self.oy = self.ox_pl.long().T, self.oy_pl.long().T
         # Epoch center stepping: centers advance by -(2N+1)*S*G.
@@ -312,17 +316,29 @@ class Solver:
                            n_jobs)
 
     def _centers_on_device(self, q0, first_job: int):
-        """Epoch centers as device tensors, copied from pinned memory
-        without making the host wait."""
+        """Epoch centers as device tensors (x, y, inf (T,) bool), copied in
+        one piece from pinned memory without making the host wait: for a
+        fused epoch x and y as packed (8, T) planes, packed on the host, so
+        that the epoch adds no launch for them; for an unfused one as rows
+        (T, 16)."""
         cx, cy, cinf = self.epoch_centers(q0, first_job,
                                           self.cfg.jobs_per_epoch)
-        packed = np.concatenate(
-            [cx.astype(np.int32), cy.astype(np.int32),
-             cinf.astype(np.int32)[:, None]], axis=1)
-        host = torch.from_numpy(packed)
+        inf = cinf.astype(np.int32)
+        if self.fused:  # word i = limb 2i | limb 2i+1 << 16 (uint32 limbs)
+            words = [(v[:, 0::2] | (v[:, 1::2] << 16)).T.view(np.int32)
+                     for v in (cx.astype(np.uint32), cy.astype(np.uint32))]
+            host = torch.from_numpy(np.ascontiguousarray(
+                np.concatenate(words + [inf[None]])))
+        else:
+            host = torch.from_numpy(np.concatenate(
+                [cx.astype(np.int32), cy.astype(np.int32), inf[:, None]],
+                axis=1))
         if self.device.type == "cuda":
             host = host.pin_memory()
         dev = host.to(self.device, non_blocking=True)
+        if self.fused:
+            w = P.PACKED_ROWS
+            return dev[:w], dev[w:2 * w], dev[-1] != 0
         nl = F.NLIMBS
         return dev[:, :nl], dev[:, nl:2 * nl], dev[:, -1] != 0
 
@@ -343,7 +359,7 @@ class Solver:
         cap = hit_cap or cfg.hit_cap
         if self.fused:
             idxs, cnt, gs = giant.run_epoch_fused(
-                cx, cy, cinf, self.ox_pl, self.oy_pl, self.baby.rows,
+                cx, cy, cinf, self.ox_pk, self.oy_pk, self.baby.rows,
                 htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
                 hit_cap=cap, phases=self._phases)
         else:
@@ -365,7 +381,7 @@ class Solver:
         prev = self._prev
         keys, bc, dc, idxs, cnt = giant.pipelined_step(
             *(prev[1:] if prev else (None,) * 4), prev is not None,
-            cx, cy, self.ox_pl, self.oy_pl, self.baby.rows, htsz=cfg.htsz,
+            cx, cy, self.ox_pk, self.oy_pk, self.baby.rows, htsz=cfg.htsz,
             chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w, hit_cap=cfg.hit_cap)
         self._prev = (first_job, keys, bc, dc, cinf)
         if prev is None:

@@ -252,24 +252,26 @@ def _prefix_tiles(w: int, tile: int, device, first: int = 1,
 def _prefix_tiles_planar(w: int, tile: int, device, first: int = 1,
                          stride: int = 1):
     """Yield (hi, lo) (take,) int32 prefix planes of (first + i*stride)G
-    tile by tile: the planar fill builds the first tile, the add-const
-    kernel advances it by tile*stride*G."""
+    tile by tile: the fill builds the first tile, the tile advance
+    (ops/epoch_kernel.tile_advance_packed: four kernel launches) moves it on
+    by tile*stride*G. The tile stays packed ((8, tile) words, 32 bytes a
+    point) for the whole build: words 1 and 0 of x are the first tile's
+    prefix halves."""
     tile = min(tile, 1 << max(11, (w - 1).bit_length()))
     if tile & (tile - 1):
         raise ValueError(f"tile must be a power of two (got {tile})")
-    xs, ys = EK.fill_multiples_planar(ecpy.mul(first), ecpy.mul(stride),
+    xs, ys = EK.fill_multiples_packed(ecpy.mul(first), ecpy.mul(stride),
                                       tile, device=device)
     step = ecpy.mul(tile * stride)
-    cxc = PL.const_col(step[0], device).to(torch.int32)
-    cyc = PL.const_col(step[1], device).to(torch.int32)
-    hi, lo = (PL.u32_bits(v[0]) for v in PL.x_prefix64(xs.long()))
+    cxc, cyc = (PL.packed_col(v, device) for v in step)
+    hi, lo = xs[1], xs[0]
     done = 0
     while done < w:
         take = min(tile, w - done)
         yield hi[:take], lo[:take]
         done += take
         if done < w:
-            xs, ys, hi, lo = EK.add_const_planar(xs, ys, cxc, cyc)
+            xs, ys, hi, lo = EK.tile_advance_packed(xs, ys, cxc, cyc)
 
 
 def compute_prefixes(w: int, tile: int = 1 << 18, device=None) -> np.ndarray:

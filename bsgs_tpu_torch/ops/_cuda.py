@@ -34,8 +34,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "bsgs_epoch_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "bsgs_epoch_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bsgs_epoch_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bsgs_epoch_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P],
     "bsgs_mont_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bsgs_mont_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bsgs_modinv": [_P, _P, _I, _P],

@@ -4,27 +4,38 @@ Counterpart of ``bsgs_tpu/ops/epoch_kernel.py``. Its six Pallas kernels
 are CUDA kernels here (``csrc/epoch_kernels.cu``); each has a wrapper below
 and, beside it, a plain PyTorch version of the same function:
 
-===================  ====================================  ==================
-wrapper              replaces (bsgs_tpu/ops/epoch_kernel)  computes
-===================  ====================================  ==================
-epoch_fwd            _fwd_kernel                           d = Ox - Mx
-                                                           prefixes
-epoch_bwd            _bwd_kernel                           (8, T*N) key plane
-mont_fwd,            _mont_fwd_kernel                      Montgomery
-mont_fwd_points                                            prefixes
-mont_bwd,            _mont_bwd_kernel                      Montgomery
-mont_bwd_points                                            inverses
-fermat               _fermat_kernel                        1/a, 0 -> 0
-add_const            _addc_kernel                          (x, y) + C
-===================  ====================================  ==================
+=======================  ====================================  ==============
+wrapper                  replaces (bsgs_tpu/ops/epoch_kernel)  computes
+=======================  ====================================  ==============
+epoch_fwd_packed         _fwd_kernel                           d = Ox - Mx
+                                                               prefixes
+epoch_bwd_packed         _bwd_kernel                           (8, T*N) keys
+mont_fwd,                _mont_fwd_kernel                      Montgomery
+mont_fwd_points_packed                                         prefixes
+mont_bwd,                _mont_bwd_kernel                      Montgomery
+mont_bwd_points_packed                                         inverses
+fermat                   _fermat_kernel                        1/a, 0 -> 0
+add_const_packed         _addc_kernel                          (x, y) + C
+=======================  ====================================  ==============
 
 Dispatch: a CUDA tensor launches the kernel (a failed build or launch
 raises), a CPU tensor runs the plain version; nothing else is accepted and
 nothing falls back. Each launch adds one to ``_cuda.LAUNCHES[name]`` (both
 entries of a Montgomery kernel count under its name).
 
-Planes are ``(16, M)`` int32 tensors of 16-bit limbs; key planes and
-prefixes are int32 tensors holding the uint32 bits of the JAX package's.
+Two layouts (``ops/planar.py``). The inversion's planes (``fermat``, the
+Montgomery plane entries ``mont_fwd``/``mont_bwd``, the chain totals) are
+``(16, M)`` int32 tensors of 16-bit limbs, as the JAX package's. The planes
+that live only inside an epoch or a tile advance are packed, ``(8, M)``
+int32 words, 32 bytes an element: the ``*_packed`` kernel wrappers take and
+give them, and their plain versions (``*_packed_plain``) unpack, run the
+limb-plane plain version beside them and pack. The main path runs the
+packed compositions (``epoch_landing_keys_packed``, ``tile_advance_packed``,
+``fill_multiples_packed``); the counterparts of the JAX package's functions
+(``epoch_landing_keys``, ``add_const_planar``, ``fill_multiples_planar``)
+keep their limb planes and their bits by packing around them. Key planes
+and prefixes are int32 tensors holding the uint32 bits of the JAX
+package's.
 
 A chain is ``chunk_c`` elements spaced ``lanes_w`` apart inside a block of
 ``chunk_c * lanes_w`` columns, as in the Pallas kernels. The chain layout
@@ -41,14 +52,15 @@ division steps (``csrc/modinv.cuh``) at a seventh of the exponentiation's
 latency. So ``batch_inv_planar`` hands a batch of up to ``DIRECT_MAX``
 lanes to it unfolded: an epoch launches no Montgomery pass.
 
-The table's tile advance (``add_const_planar``) folds once, in chains of
-``TILE_CHUNK_C``, and its Montgomery kernels (``csrc/mont.cuh``) spread
+The table's tile advance (``tile_advance_packed``) folds once, in chains
+of ``TILE_CHUNK_C``, and its Montgomery kernels (``csrc/mont.cuh``) spread
 each chain over ``mont_segments`` threads of ``MONT_SEG_LEN`` positions
-with a scan in shared memory. Their points entries (``mont_fwd_points``,
-``mont_bwd_points``) form the denominators from the tile's points, so a
-tile advance is four launches: forward pass, inversion of the chain
-totals, backward pass, add-const. ``mont_fwd_segmented_plain`` and
-``mont_bwd_segmented_plain`` repeat the kernels' split in plain PyTorch.
+with a scan in shared memory. Their points entries
+(``mont_fwd_points_packed``, ``mont_bwd_points_packed``) form the
+denominators from the tile's points, so a tile advance is four launches:
+forward pass, inversion of the chain totals, backward pass, add-const.
+``mont_fwd_segmented_plain`` and ``mont_bwd_segmented_plain`` repeat the
+kernels' split in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -75,20 +87,26 @@ FILL_SEED = 1024  # host-exact points that start a planar doubling fill
 _I32 = torch.int32
 
 
-def _on_cuda(*ts: torch.Tensor) -> bool:
+def _on_cuda(*ts: torch.Tensor, rows: Optional[int] = None,
+             views=()) -> bool:
     """True for CUDA tensors (the kernel), False for CPU ones (the plain
-    version); anything else raises."""
+    version); anything else raises. rows: the row count every plane must
+    have (P.PACKED_ROWS for packed planes). views: tensors the kernel takes
+    as column slices of a wider plane, whose rows need only be contiguous;
+    the others must be contiguous."""
     dev = ts[0].device
-    for t in ts:
+    for t in ts + tuple(views):
         if t.device != dev:
             raise ValueError(f"tensors on {dev} and {t.device}")
         if t.dtype != _I32 or t.dim() != 2:
             raise ValueError(f"expected 2-D int32 planes, got {t.dtype} "
                              f"{tuple(t.shape)}")
+        if rows is not None and t.shape[0] != rows:
+            raise ValueError(f"expected {rows} rows, got {tuple(t.shape)}")
     if dev.type == "cuda":
-        for t in ts:
-            if not t.is_contiguous():
-                raise ValueError("kernel inputs must be contiguous")
+        if not all(t.is_contiguous() for t in ts) or not all(
+                t.stride(1) == 1 or t.shape[1] == 1 for t in views):
+            raise ValueError("kernel inputs must be contiguous")
         return True
     if dev.type == "cpu":
         return False
@@ -133,19 +151,39 @@ def epoch_fwd_plain(ox, cx, *, chunk_c: int, lanes_w: int):
             run.reshape(F.NLIMBS, t_jobs * nb * W).to(_I32))
 
 
-def epoch_fwd(ox, cx, *, chunk_c: int, lanes_w: int):
-    """ox (16, N), centers cx (16, T) -> (pre (16, T*N), tot (16, T*nb*W)):
-    d = Ox - Mx (0 -> 1) per pair, pair order t*N + j; pre holds each
-    chain's exclusive running products, tot its total."""
-    if not _on_cuda(ox, cx):
-        return epoch_fwd_plain(ox, cx, chunk_c=chunk_c, lanes_w=lanes_w)
+def epoch_fwd_packed_plain(ox, cx, *, chunk_c: int, lanes_w: int):
+    """epoch_fwd_plain on packed planes: pre packed, tot (16, ·)."""
+    pre, tot = epoch_fwd_plain(P.unpack_planes(ox), P.unpack_planes(cx),
+                               chunk_c=chunk_c, lanes_w=lanes_w)
+    return P.pack_planes(pre), tot
+
+
+def _row_stride(cx, cy=None) -> int:
+    """The row stride of the centers (a column slice of a wider packed
+    plane is taken as it is), shared by cx and cy."""
+    ld = cx.stride(0)
+    if cy is not None and cy.stride(0) != ld:
+        raise ValueError(f"centers with row strides {ld} and "
+                         f"{cy.stride(0)}")
+    return ld
+
+
+def epoch_fwd_packed(ox, cx, *, chunk_c: int, lanes_w: int):
+    """Packed offsets ox (8, N) and centers cx (8, T) -> (pre packed
+    (8, T*N), tot (16, T*nb*W)): d = Ox - Mx (0 -> 1) per pair, pair order
+    t*N + j; pre holds each chain's exclusive running products, tot its
+    total, as the inversion takes it."""
+    if not _on_cuda(ox, rows=P.PACKED_ROWS, views=(cx,)):
+        return epoch_fwd_packed_plain(ox, cx, chunk_c=chunk_c,
+                                      lanes_w=lanes_w)
     t_jobs, n = cx.shape[1], ox.shape[1]
     nb = _chains(n, chunk_c, lanes_w)
-    pre = torch.empty((F.NLIMBS, t_jobs * n), dtype=_I32, device=ox.device)
+    pre = torch.empty((P.PACKED_ROWS, t_jobs * n), dtype=_I32,
+                      device=ox.device)
     tot = torch.empty((F.NLIMBS, t_jobs * nb * lanes_w), dtype=_I32,
                       device=ox.device)
     _cuda.launch("bsgs_epoch_fwd", ox, cx, pre, tot, t_jobs, n, chunk_c,
-                 lanes_w)
+                 lanes_w, _row_stride(cx))
     _cuda.LAUNCHES["epoch_fwd"] += 1
     return pre, tot
 
@@ -186,22 +224,36 @@ def epoch_bwd_plain(ox, oy, cx, cy, pre, itot, *, htsz: int, chunk_c: int,
     return P.u32_bits(out.reshape(8, t_jobs * n))
 
 
-def epoch_bwd(ox, oy, cx, cy, pre, itot, *, htsz: int, chunk_c: int,
-              lanes_w: int):
-    """The backward walk from the inverted chain totals: per pair the
-    landing keys of x(M + O) and x(M - O) and the exact flag (Ox == Mx).
+def epoch_bwd_packed_plain(ox, oy, cx, cy, pre, itot, *, htsz: int,
+                           chunk_c: int, lanes_w: int):
+    """epoch_bwd_plain on packed ox, oy, centers and pre."""
+    u = P.unpack_planes
+    return epoch_bwd_plain(u(ox), u(oy), u(cx), u(cy), u(pre), itot,
+                           htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w)
+
+
+def epoch_bwd_packed(ox, oy, cx, cy, pre, itot, *, htsz: int, chunk_c: int,
+                     lanes_w: int):
+    """The backward walk from the inverted chain totals itot (16, ·):
+    per pair the landing keys of x(M + O) and x(M - O) and the exact flag
+    (Ox == Mx), from packed ox, oy (8, N), centers (8, T) and pre.
     Returns the (8, T*N) key plane: rows bucket+, disc+, bucket-, disc-,
     exact, then three zero rows."""
-    if not _on_cuda(ox, oy, cx, cy, pre, itot):
-        return epoch_bwd_plain(ox, oy, cx, cy, pre, itot, htsz=htsz,
-                               chunk_c=chunk_c, lanes_w=lanes_w)
+    on_cuda = _on_cuda(ox, oy, pre, rows=P.PACKED_ROWS, views=(cx, cy))
+    if itot.device != ox.device:
+        raise ValueError(f"itot on {itot.device}, the planes on "
+                         f"{ox.device}")
+    _on_cuda(itot, rows=F.NLIMBS)
+    if not on_cuda:
+        return epoch_bwd_packed_plain(ox, oy, cx, cy, pre, itot, htsz=htsz,
+                                      chunk_c=chunk_c, lanes_w=lanes_w)
     if not 1 <= htsz <= 31:
         raise ValueError(f"htsz {htsz} outside [1, 31]")
     t_jobs, n = cx.shape[1], ox.shape[1]
     _chains(n, chunk_c, lanes_w)
     out = torch.empty((8, t_jobs * n), dtype=_I32, device=ox.device)
     _cuda.launch("bsgs_epoch_bwd", ox, oy, cx, cy, pre, itot, out, t_jobs,
-                 n, chunk_c, lanes_w, htsz)
+                 n, chunk_c, lanes_w, htsz, _row_stride(cx, cy))
     _cuda.LAUNCHES["epoch_bwd"] += 1
     return out
 
@@ -386,11 +438,11 @@ def _padded(v, width: int):
 
 
 def _check_points(xs, ys, cx) -> bool:
-    """The points entry's inputs: (16, m) xs and ys and a (16, 1) column,
-    on one device. True for the kernel, False for the plain version."""
-    on_cuda = _on_cuda(xs, ys, cx)
-    if (xs.shape[0] != F.NLIMBS or ys.shape != xs.shape
-            or cx.shape != (F.NLIMBS, 1)):
+    """The points entry's inputs: packed (8, m) xs and ys and a packed
+    (8, 1) column, on one device. True for the kernel, False for the plain
+    version."""
+    on_cuda = _on_cuda(xs, ys, cx, rows=P.PACKED_ROWS)
+    if ys.shape != xs.shape or cx.shape != (P.PACKED_ROWS, 1):
         raise ValueError(f"points {tuple(xs.shape)} / {tuple(ys.shape)} and "
                          f"column {tuple(cx.shape)} do not fit")
     return on_cuda
@@ -429,18 +481,40 @@ def mont_bwd_points_plain(xs, ys, cx, pre, itot, *, chunk_c: int,
     return out[:, :m]
 
 
-def mont_fwd_points(xs, ys, cx, *, chunk_c: int, lanes_w: int,
-                    segments: Optional[int] = None):
-    """mont_fwd over the denominators of the tile (xs, ys) + C (cx the
-    step's (16, 1) x column, tile_den_plain), which the kernel forms in
-    registers: no den plane is written. Any width m: the last block of
-    chains is padded with ones. Returns (pre (16, m), tot (16, blocks*W)).
-    On the CPU it runs the plain version of the kernel's own split (a few
-    wide steps in place of chunk_c narrow ones: the CPU pays per step)."""
+def mont_fwd_points_packed_plain(xs, ys, cx, *, chunk_c: int, lanes_w: int,
+                                 segments: Optional[int] = None):
+    """mont_fwd_points_plain on the packed points and column: pre packed,
+    tot (16, ·)."""
+    u = P.unpack_planes
+    pre, tot = mont_fwd_points_plain(u(xs), u(ys), u(cx), chunk_c=chunk_c,
+                                     lanes_w=lanes_w, segments=segments)
+    return P.pack_planes(pre), tot
+
+
+def mont_bwd_points_packed_plain(xs, ys, cx, pre, itot, *, chunk_c: int,
+                                 lanes_w: int,
+                                 segments: Optional[int] = None):
+    """mont_bwd_points_plain on packed points, column and pre: the
+    inverses packed."""
+    u = P.unpack_planes
+    return P.pack_planes(mont_bwd_points_plain(
+        u(xs), u(ys), u(cx), u(pre), itot, chunk_c=chunk_c, lanes_w=lanes_w,
+        segments=segments))
+
+
+def mont_fwd_points_packed(xs, ys, cx, *, chunk_c: int, lanes_w: int,
+                           segments: Optional[int] = None):
+    """mont_fwd over the denominators of the tile (xs, ys) + C (packed
+    (8, m) points, cx the step's packed (8, 1) x column; tile_den_plain),
+    which the kernel forms in registers: no den plane is written. Any width
+    m: the last block of chains is padded with ones. Returns (pre packed
+    (8, m), tot (16, blocks*W)). On the CPU it runs the plain version of
+    the kernel's own split (a few wide steps in place of chunk_c narrow
+    ones: the CPU pays per step)."""
     S = mont_segments(chunk_c) if segments is None else segments
     if not _check_points(xs, ys, cx):
-        return mont_fwd_points_plain(xs, ys, cx, chunk_c=chunk_c,
-                                     lanes_w=lanes_w, segments=S)
+        return mont_fwd_points_packed_plain(xs, ys, cx, chunk_c=chunk_c,
+                                            lanes_w=lanes_w, segments=S)
     m = xs.shape[1]
     blocks = _tile_blocks(m, chunk_c, lanes_w)
     _check_mont_layout(chunk_c, lanes_w, S)
@@ -453,21 +527,24 @@ def mont_fwd_points(xs, ys, cx, *, chunk_c: int, lanes_w: int,
     return pre, tot
 
 
-def mont_bwd_points(xs, ys, cx, pre, itot, *, chunk_c: int, lanes_w: int,
-                    segments: Optional[int] = None):
-    """mont_bwd over the tile's denominators (mont_fwd_points): 1/den per
-    lane, (16, m)."""
+def mont_bwd_points_packed(xs, ys, cx, pre, itot, *, chunk_c: int,
+                           lanes_w: int, segments: Optional[int] = None):
+    """mont_bwd over the tile's denominators (mont_fwd_points_packed): 1/den
+    per lane, packed (8, m), from the packed pre and the inverted totals
+    itot (16, blocks*W)."""
     S = mont_segments(chunk_c) if segments is None else segments
     on_cuda = _check_points(xs, ys, cx)
-    _on_cuda(xs, pre, itot)
+    _on_cuda(xs, pre, rows=P.PACKED_ROWS)
+    _on_cuda(xs, itot)
     m = xs.shape[1]
     blocks = _tile_blocks(m, chunk_c, lanes_w)
     if pre.shape != xs.shape or itot.shape != (F.NLIMBS, blocks * lanes_w):
         raise ValueError(f"pre {tuple(pre.shape)} / itot "
                          f"{tuple(itot.shape)} do not fit {m} lanes")
     if not on_cuda:
-        return mont_bwd_points_plain(xs, ys, cx, pre, itot, chunk_c=chunk_c,
-                                     lanes_w=lanes_w, segments=S)
+        return mont_bwd_points_packed_plain(xs, ys, cx, pre, itot,
+                                            chunk_c=chunk_c, lanes_w=lanes_w,
+                                            segments=S)
     _check_mont_layout(chunk_c, lanes_w, S)
     out = torch.empty_like(xs)
     _cuda.launch("bsgs_mont_bwd", xs, ys, cx, pre, itot, out, m, chunk_c,
@@ -542,15 +619,27 @@ def add_const_plain(xs, ys, inv, cx, cy):
     return x3.to(_I32), y3.to(_I32), P.u32_bits(torch.cat([hi, lo]))
 
 
-def add_const(xs, ys, inv, cx, cy):
+def add_const_packed_plain(xs, ys, inv, cx, cy):
+    """add_const_plain on packed planes and columns: x3, y3 packed."""
+    u = P.unpack_planes
+    x3, y3, prefix = add_const_plain(u(xs), u(ys), u(inv), u(cx), u(cy))
+    return P.pack_planes(x3), P.pack_planes(y3), prefix
+
+
+def add_const_packed(xs, ys, inv, cx, cy):
     """(xs, ys) + C lane-wise given inv = 1/den (den = Cx - x, or 2y on the
-    doubling lanes x == Cx). cx, cy are (16, 1) columns. Returns (x3, y3,
-    prefix (2, m)) with prefix rows (hi32, lo32) of x3's low 64 bits."""
-    if not _on_cuda(xs, ys, inv, cx, cy):
-        return add_const_plain(xs, ys, inv, cx, cy)
+    doubling lanes x == Cx), every plane packed (8, m), cx and cy packed
+    (8, 1) columns. Returns (x3, y3 packed, prefix (2, m)) with prefix rows
+    (hi32, lo32) of x3's low 64 bits."""
+    if not _on_cuda(xs, ys, inv, cx, cy, rows=P.PACKED_ROWS):
+        return add_const_packed_plain(xs, ys, inv, cx, cy)
     m = xs.shape[1]
-    if cx.shape != (F.NLIMBS, 1) or cy.shape != (F.NLIMBS, 1):
-        raise ValueError("cx, cy must be (16, 1) columns")
+    if (ys.shape != xs.shape or inv.shape != xs.shape
+            or cx.shape != (P.PACKED_ROWS, 1)
+            or cy.shape != (P.PACKED_ROWS, 1)):
+        raise ValueError(f"points {tuple(xs.shape)}, {tuple(ys.shape)}, "
+                         f"{tuple(inv.shape)} and columns {tuple(cx.shape)}, "
+                         f"{tuple(cy.shape)} do not fit")
     x3, y3 = torch.empty_like(xs), torch.empty_like(ys)
     prefix = torch.empty((2, m), dtype=_I32, device=xs.device)
     _cuda.launch("bsgs_add_const", xs, ys, inv, cx, cy, x3, y3, prefix, m)
@@ -566,29 +655,42 @@ def tile_lanes(m: int, chunk_c: int) -> int:
     return min(LANES_W, 32 * -(-m // (32 * chunk_c)))
 
 
-def add_const_planar(xs, ys, cx_col, cy_col, *,
-                     chunk_c: int = TILE_CHUNK_C):
-    """Planar (16, m) batch + one common point C with one shared batch
-    inversion, any width m. Lanes with x == Cx are doublings (P == +C;
-    generation never meets P == -C). The inversion folds once, in chains of
-    chunk_c (tile_lanes apart), over denominators that the Montgomery
-    passes form from the points themselves: on the card mont_fwd, the
-    inversion of the chain totals, mont_bwd and add_const, four launches
-    and nothing else. Returns (x3, y3, prefix_hi, prefix_lo)."""
+def tile_advance_packed(xs, ys, cx_col, cy_col, *,
+                        chunk_c: int = TILE_CHUNK_C):
+    """Packed (8, m) batch + one common point C (packed (8, 1) columns)
+    with one shared batch inversion, any width m: add_const_planar's
+    function on packed planes, which the table build and the fills run.
+    Lanes with x == Cx are doublings (P == +C; generation never meets
+    P == -C). The inversion folds once, in chains of chunk_c (tile_lanes
+    apart), over denominators that the Montgomery passes form from the
+    points themselves: on the card mont_fwd, the inversion of the chain
+    totals, mont_bwd and add_const, four launches and nothing else.
+    Returns (x3, y3 packed, prefix_hi, prefix_lo)."""
     kw = dict(chunk_c=chunk_c, lanes_w=tile_lanes(xs.shape[1], chunk_c))
-    pre, tot = mont_fwd_points(xs, ys, cx_col, **kw)
+    pre, tot = mont_fwd_points_packed(xs, ys, cx_col, **kw)
     itot = batch_inv_planar(tot)
-    inv = mont_bwd_points(xs, ys, cx_col, pre, itot, **kw)
-    x3, y3, prefix = add_const(xs, ys, inv, cx_col, cy_col)
+    inv = mont_bwd_points_packed(xs, ys, cx_col, pre, itot, **kw)
+    x3, y3, prefix = add_const_packed(xs, ys, inv, cx_col, cy_col)
     return x3, y3, prefix[0], prefix[1]
 
 
-def fill_multiples_planar(base_pt, step_pt, n: int, device=None):
-    """Planar (16, n) x/y planes of [base + i*step, i = 0..n-1], n a power
-    of two: a host-exact seed row of min(FILL_SEED, n) points, then
-    doubling passes that add (have*step) to lanes [0, have) and place the
-    sums at [have, 2*have) in place. For n <= FILL_SEED the result is the
-    host row.
+def add_const_planar(xs, ys, cx_col, cy_col, *,
+                     chunk_c: int = TILE_CHUNK_C):
+    """Planar (16, m) batch + one common point C ((16, 1) columns): the
+    counterpart of bsgs_tpu's add_const_planar, its bits and signature,
+    through tile_advance_packed. Returns (x3, y3, prefix_hi, prefix_lo)."""
+    pk = P.pack_planes
+    x3, y3, hi, lo = tile_advance_packed(pk(xs), pk(ys), pk(cx_col),
+                                         pk(cy_col), chunk_c=chunk_c)
+    return P.unpack_planes(x3), P.unpack_planes(y3), hi, lo
+
+
+def fill_multiples_packed(base_pt, step_pt, n: int, device=None):
+    """Packed (8, n) x/y planes of [base + i*step, i = 0..n-1], n a power
+    of two: a host-exact seed row of min(FILL_SEED, n) points, packed on
+    the host, then doubling passes (tile_advance_packed) that add
+    (have*step) to lanes [0, have) and place the sums at [have, 2*have) in
+    place. For n <= FILL_SEED the result is the host row.
 
     No lane may be the point at infinity."""
     dev = resolve_device(device)
@@ -598,26 +700,48 @@ def fill_multiples_planar(base_pt, step_pt, n: int, device=None):
     sx, sy, sinf = ec.host_row(base_pt, step_pt, seed)
     if sinf.any():
         raise ValueError("infinity lane in planar fill seed")
-    xs = torch.zeros((F.NLIMBS, n), dtype=_I32)
-    ys = torch.zeros((F.NLIMBS, n), dtype=_I32)
-    xs[:, :seed] = torch.from_numpy(sx.T.astype("int32"))
-    ys[:, :seed] = torch.from_numpy(sy.T.astype("int32"))
+    xs = torch.zeros((P.PACKED_ROWS, n), dtype=_I32)
+    ys = torch.zeros((P.PACKED_ROWS, n), dtype=_I32)
+    xs[:, :seed] = P.pack_planes(torch.from_numpy(sx.T.astype("int64")))
+    ys[:, :seed] = P.pack_planes(torch.from_numpy(sy.T.astype("int64")))
     xs, ys = xs.to(dev), ys.to(dev)
     have = seed
     while have < n:
         c_pt = ecpy.mul(have, step_pt)
-        cx = P.const_col(c_pt[0], dev).to(_I32)
-        cy = P.const_col(c_pt[1], dev).to(_I32)
-        x3, y3, _, _ = add_const_planar(
-            xs[:, :have].contiguous(), ys[:, :have].contiguous(), cx, cy)
+        x3, y3, _, _ = tile_advance_packed(
+            xs[:, :have].contiguous(), ys[:, :have].contiguous(),
+            P.packed_col(c_pt[0], dev), P.packed_col(c_pt[1], dev))
         xs[:, have : 2 * have] = x3
         ys[:, have : 2 * have] = y3
         have *= 2
     return xs, ys
 
 
+def fill_multiples_planar(base_pt, step_pt, n: int, device=None):
+    """Planar (16, n) x/y planes of [base + i*step, i = 0..n-1], n a power
+    of two: the counterpart of bsgs_tpu's fill_multiples_planar, through
+    fill_multiples_packed. No lane may be the point at infinity."""
+    xs, ys = fill_multiples_packed(base_pt, step_pt, n, device=device)
+    return P.unpack_planes(xs), P.unpack_planes(ys)
+
+
 # ---------------------------------------------------------------------------
 # The epoch's key plane
+
+
+def epoch_landing_keys_packed(cx, cy, ox, oy, *, htsz: int,
+                              chunk_c: int = CHUNK_C,
+                              lanes_w: int = LANES_W):
+    """All probe keys of one epoch phase, T centers x N offsets, on packed
+    planes: centers (8, T) (a column slice of a wider plane is taken as it
+    is), offsets (8, N) with N % (chunk_c * lanes_w) == 0. Returns the
+    (8, T*N) key plane (rows: bucket+, disc+, bucket-, disc-, exact; pair
+    order t*N + j): forward pass, inversion of the chain totals, backward
+    pass."""
+    pre, tot = epoch_fwd_packed(ox, cx, chunk_c=chunk_c, lanes_w=lanes_w)
+    itot = batch_inv_planar(tot, chunk_c=chunk_c, lanes_w=lanes_w)
+    return epoch_bwd_packed(ox, oy, cx, cy, pre, itot, htsz=htsz,
+                            chunk_c=chunk_c, lanes_w=lanes_w)
 
 
 def epoch_landing_keys(centers_x_pl, centers_y_pl, ox_pl, oy_pl, *,
@@ -628,9 +752,9 @@ def epoch_landing_keys(centers_x_pl, centers_y_pl, ox_pl, oy_pl, *,
     Inputs are planar: centers (16, T), offsets (16, N) with
     N % (chunk_c * lanes_w) == 0. Returns the (8, T*N) key plane (rows:
     bucket+, disc+, bucket-, disc-, exact; pair order t*N + j), the same
-    bits as bsgs_tpu's epoch_landing_keys."""
-    pre, tot = epoch_fwd(ox_pl, centers_x_pl, chunk_c=chunk_c,
-                         lanes_w=lanes_w)
-    itot = batch_inv_planar(tot, chunk_c=chunk_c, lanes_w=lanes_w)
-    return epoch_bwd(ox_pl, oy_pl, centers_x_pl, centers_y_pl, pre, itot,
-                     htsz=htsz, chunk_c=chunk_c, lanes_w=lanes_w)
+    bits as bsgs_tpu's epoch_landing_keys, through
+    epoch_landing_keys_packed."""
+    pk = P.pack_planes
+    return epoch_landing_keys_packed(
+        pk(centers_x_pl), pk(centers_y_pl), pk(ox_pl), pk(oy_pl), htsz=htsz,
+        chunk_c=chunk_c, lanes_w=lanes_w)

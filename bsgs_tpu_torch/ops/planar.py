@@ -16,6 +16,13 @@ so results are bit-identical to the JAX package and to the kernels.
 u32 planes that leave the arithmetic (key planes, the dense table) are
 stored as ``int32`` tensors holding the same bits; ``u32_bits`` and
 ``u32_value`` convert.
+
+The kernels' planes that live only inside an epoch or a tile advance are
+packed: a ``(8, *batch)`` int32 tensor whose row i holds word i of each
+element, limb 2i | limb 2i+1 << 16 (the uint32 bits), 32 bytes an element
+where the limb planes take 64. ``pack_planes`` and ``unpack_planes``
+convert (plain PyTorch, on either device), ``packed_col`` makes a packed
+constant column on the host.
 """
 
 from __future__ import annotations
@@ -78,6 +85,34 @@ def u32_bits(x: torch.Tensor) -> torch.Tensor:
 def u32_value(x: torch.Tensor) -> torch.Tensor:
     """int32 bits -> their uint32 value as int64."""
     return x.to(_I64) & 0xFFFFFFFF
+
+
+PACKED_ROWS = NLIMBS // 2
+
+
+def pack_planes(a: torch.Tensor) -> torch.Tensor:
+    """(16, *batch) limbs (any integer type, each in [0, 2^16)) -> the
+    packed (8, *batch) int32 plane: row i = limb 2i | limb 2i+1 << 16."""
+    if a.shape[0] != NLIMBS:
+        raise ValueError(f"expected {NLIMBS} limb rows, got {tuple(a.shape)}")
+    a = a.to(_I64)
+    return u32_bits(a[0::2] | (a[1::2] << LIMB_BITS))
+
+
+def unpack_planes(w: torch.Tensor) -> torch.Tensor:
+    """Packed (8, *batch) int32 words -> the (16, *batch) int32 limb
+    plane; unpack_planes(pack_planes(a)) == a for limbs in [0, 2^16)."""
+    if w.shape[0] != PACKED_ROWS:
+        raise ValueError(f"expected {PACKED_ROWS} packed rows, got "
+                         f"{tuple(w.shape)}")
+    v = u32_value(w)
+    limbs = torch.stack((v & LIMB_MASK, v >> LIMB_BITS), dim=1)
+    return limbs.reshape((NLIMBS,) + tuple(w.shape[1:])).to(torch.int32)
+
+
+def packed_col(x: int, device=None) -> torch.Tensor:
+    """Host int -> (8, 1) packed int32 column, packed on the host."""
+    return pack_planes(const_col(x)).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -67,6 +67,7 @@ class MeshSolver(S.Solver):
         self.cfg = base.cfg
         self.baby = base.baby
         self.ox_pl, self.oy_pl = base.ox_pl, base.oy_pl
+        self.ox_pk, self.oy_pk = base.ox_pk, base.oy_pk
         self.fused = base.fused
         if not self.fused:
             self.ox, self.oy = base.ox, base.oy
@@ -115,7 +116,7 @@ class MeshSolver(S.Solver):
         cap = hit_cap or cfg.hit_cap
         if self.fused:
             idxs, cnt = giant.fused_epoch_probes(
-                cx, cy, cinf, self.ox_pl, self.oy_pl, self._probe,
+                cx, cy, cinf, self.ox_pk, self.oy_pk, self._probe,
                 htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
                 hit_cap=cap, phases=self._phases)
         else:

@@ -13,7 +13,9 @@ working set is the port's own device layout:
                    (mirror) per slot; offsets 4 B a bucket, and the
                    probe's row-length plane, 1 B a bucket (2 B above 255
                    slots a row)
-  giant offsets    x and y planes, 2 * 64 B per offset
+  giant offsets    x and y planes, each packed (32 B an offset, which the
+                   fused epoch reads) and as limb planes (64 B): 2 * 96 B
+                   per offset
   epoch transients EPOCH_BYTES_PER_PAIR per (job, offset) pair of an epoch
   build peak       the table, plus BUILD_BYTES_PER_KEY per key for the
                    one-shot sort pack, or STREAMED_BUILD_BYTES_PER_BUCKET
@@ -134,7 +136,7 @@ def plan(w: int, window: int = tbl.DEVICE_WINDOW) -> TuneResult:
     return TuneResult(
         w=w, htsz=htsz, window=window, n_offsets=n, jobs_per_epoch=t,
         pipeline=cfg.pipeline, streamed_build=streamed,
-        est_table_bytes=table_b, est_offsets_bytes=2 * n * 64,
+        est_table_bytes=table_b, est_offsets_bytes=2 * n * (32 + 64),
         est_transient_bytes=EPOCH_BYTES_PER_PAIR * t * n,
         est_build_peak_bytes=table_b + build_b)
 

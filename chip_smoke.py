@@ -11,6 +11,10 @@
                                       # and the probe's study (the
                                       # parent's kernel and the layouts),
                                       # as JSON
+    python3 chip_smoke.py --packed    # only the build and the packed
+                                      # layout's study (the parent's
+                                      # kernels on limb planes against the
+                                      # packed ones), as JSON
 
 Phases, each followed by torch.cuda.synchronize(); any failure exits
 nonzero:
@@ -29,7 +33,11 @@ nonzero:
    pipe-counted bound;
 2. run each of the six epoch and table kernels and its plain PyTorch
    version on the card at the main path's shapes and require bit-identical
-   outputs, timing both; hold the inversion kernel at 2,048, 16,384 and
+   outputs, timing both (the kernels of packed planes, epoch_fwd, epoch_bwd,
+   add_const and the Montgomery points entry, also equal, unpacked, to the
+   limb-plane plain versions; epoch_fwd's and add_const's registers read,
+   the run failing if either spills); hold the inversion kernel at 2,048,
+   16,384 and
    131,072 lanes too (edge values planted) against the exponentiation and
    against the plain version of its own algorithm, and require
    x * inv(x) == 1 at the widest; time one epoch phase at chain lengths 8
@@ -139,11 +147,18 @@ SEED = 20261016
 # compares) each take 64 lanes an SM a clock; the SM's 4 schedulers issue
 # 128 lanes a clock over both.
 HBM_BYTES_PER_S = 3.35e12
+# A field element's bytes: the function's own floor counts 32 (what the
+# packed planes move); the (16, M) int32 limb planes move 64, half of them
+# zero (bound_ms_planes in the records).
+ELEM_BYTES = 32
+PLANE_ELEM_BYTES = 64
 MUL_PIPE_PER_S = 132 * 64 * 1.98e9
 INT_ISSUE_PER_S = 2 * MUL_PIPE_PER_S
 P_INT = 2**256 - 2**32 - 977
-# cycles of the spin kernel that cuda_ms queues launches behind
+# cycles of the spin kernel that cuda_ms queues launches behind, and that
+# cuda_ms_cold queues each launch behind after its flush
 QUEUE_CYCLES = 20_000_000
+COLD_CYCLES = 2_000_000
 # How far the tuner's table and build-peak estimates may stray from the
 # bytes the run measures (they are constants measured on the H100).
 TUNER_MARGIN = 0.10
@@ -223,23 +238,34 @@ def cuda_ms(fn, reps: int, queued: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def spun_launch(fn) -> tuple:
+    """Events around fn() queued behind a spin kernel of COLD_CYCLES (about
+    1 ms, which touches no memory), so that they time the device and not
+    the host's Python between the two records: a wrapper's tens of
+    microseconds on a busy host would otherwise show as device idle."""
+    import torch
+
+    torch.cuda._sleep(COLD_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    return start, end
+
+
 def cuda_ms_cold(fn, reps: int, flush_bytes: int = 1 << 28) -> float:
     """Mean device time of fn() with the L2 cold: before each launch a read
     of flush_bytes (five times the 50 MB L2) evicts what the last one left
     and leaves no dirty line to write back, and events time the launch
-    alone."""
+    alone (spun_launch)."""
     import torch
 
     buf = torch.ones(flush_bytes, dtype=torch.uint8, device="cuda")
     pairs = []
     for _ in range(reps):
         buf.amax()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
+        pairs.append(spun_launch(fn))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
@@ -280,26 +306,40 @@ def build_kernels(side):
     return took, libs, compiled_costs(libs, side)
 
 
+def kernel_resources(paths, pattern: str) -> dict:
+    """{function: REG, STACK, SHARED and LOCAL} of the functions of the
+    built libraries whose (mangled) names match pattern, from cuobjdump
+    -res-usage."""
+    from bsgs_tpu_torch.ops import _cuda
+
+    exe = Path(_cuda._nvcc()).with_name("cuobjdump")
+    found = {}
+    for path in paths:
+        out = subprocess.run([str(exe), "-res-usage", str(path)],
+                             capture_output=True, text=True, timeout=300,
+                             check=True).stdout
+        for name, body in re.findall(r"Function (\S+):\s*\n\s*([^\n]*)",
+                                     out):
+            if re.search(pattern, name):
+                found[name] = dict((k, int(v)) for k, v in re.findall(
+                    r"(REG|STACK|SHARED|LOCAL):(\d+)", body))
+    return found
+
+
 def mont_resources(libs) -> dict:
     """Registers, stack, shared and local memory of each instantiation of
     the Montgomery kernels, from cuobjdump -res-usage of the built library
     ("mont_fwd L=4 points" etc.). The run fails if the instantiation the
     path uses (MONT_SEG_LEN positions a thread) spills: local memory or a
     stack."""
-    from bsgs_tpu_torch.ops import _cuda, epoch_kernel as EK
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
 
     lib = next(p for p in libs if p.name.startswith("libepoch_kernels"))
-    exe = Path(_cuda._nvcc()).with_name("cuobjdump")
-    out = subprocess.run([str(exe), "-res-usage", str(lib)],
-                         capture_output=True, text=True, timeout=300,
-                         check=True).stdout
     found = {}
-    for name, L, pts, body in re.findall(
-            r"Function \S*(mont_[a-z]+)_kernelILi(\d+)ELb([01])E\S*:\s*\n"
-            r"\s*([^\n]*)", out):
-        use = dict((k, int(v)) for k, v in re.findall(
-            r"(REG|STACK|SHARED|LOCAL):(\d+)", body))
-        found[f"{name} L={L}{' points' if pts == '1' else ''}"] = use
+    for name, use in kernel_resources([lib], r"mont_[a-z]+_kernelILi").items():
+        kind, L, pts = re.search(r"(mont_[a-z]+)_kernelILi(\d+)ELb([01])E",
+                                 name).groups()
+        found[f"{kind} L={L}{' points' if pts == '1' else ''}"] = use
     if len(found) != 12:
         raise AssertionError(f"mont kernels in the build: {sorted(found)}")
     for key, use in sorted(found.items()):
@@ -386,7 +426,7 @@ def check_inversion(device, widths, costs: dict) -> list:
                 raise AssertionError("inversion: x * inv(x) != 1")
         ms = cuda_ms(lambda: EK.fermat(x), reps=20)
         bound_ms, bound_by = bound(inversion_work(costs, m, batches),
-                                   2 * 64 * m)
+                                   2 * ELEM_BYTES * m)
         out.append(dict(m=m, ms=ms, bound_ms=bound_ms,
                         batches_max=int(batches.max()),
                         batches_mean=float(batches.double().mean())))
@@ -407,16 +447,20 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
     inversion of that phase's chain totals (unfolded), and one table pass
     of m_tab lanes (the path's build tile) for add_const and for the
     Montgomery passes (check_mont), which only the table build and the
-    fills launch. One phase must give the same key plane under each shape
-    of the inversion tree; time_trees also times them. Returns the
-    per-kernel records."""
+    fills launch. The kernels of packed planes (epoch_fwd, epoch_bwd,
+    add_const) must equal their packed plain versions bit for bit and,
+    unpacked, the limb-plane plain versions; the centers are a column slice
+    of a wider packed plane, as an epoch's phases take them. One phase must
+    give the same key plane under each shape of the inversion tree;
+    time_trees also times them. Returns the per-kernel records."""
     import numpy as np
     import torch
 
-    from bsgs_tpu_torch.ops import epoch_kernel as EK
+    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
 
     rng = np.random.default_rng(SEED)
     C, W = EK.CHUNK_C, EK.LANES_W
+    pk, unpk = PL.pack_planes, PL.unpack_planes
     ox = random_planes(rng, 16, N, device)
     oy = random_planes(rng, 16, N, device)
     cx = random_planes(rng, 16, T, device)
@@ -424,6 +468,13 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
     # exact lanes: Ox == Mx for a few (t, j)
     for t, j in ((0, 5), (1, N // 3), (T - 1, N - 1)):
         ox[:, j] = cx[:, t]
+    ox_p, oy_p = pk(ox), pk(oy)
+    # the centers as column slices of one wider packed plane, strided as
+    # an epoch's phases take theirs
+    wide = random_planes(rng, 16, 2 * T + 10, device)
+    wide[:, 3:T + 3], wide[:, T + 8:2 * T + 8] = cx, cy
+    wide = pk(wide)
+    cx_p, cy_p = wide[:, 3:T + 3], wide[:, T + 8:2 * T + 8]
     m_tot = T * N // C
     m_fermat = m_tot
     if m_fermat > EK.DIRECT_MAX or m_tab // EK.TILE_CHUNK_C > EK.DIRECT_MAX:
@@ -438,8 +489,12 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
     ccx = random_planes(rng, 16, 1, device)
     ccy = random_planes(rng, 16, 1, device)
     xs[:, 1234] = ccx[:, 0]  # a doubling lane
+    plant_edge_lanes(xs)
+    plant_edge_lanes(ys)
+    add_p = [pk(v) for v in (xs, ys, inv, ccx, ccy)]
 
-    pre, tot = EK.epoch_fwd(ox, cx, chunk_c=C, lanes_w=W)
+    pre_p, tot = EK.epoch_fwd_packed(ox_p, cx_p, chunk_c=C, lanes_w=W)
+    pre = unpk(pre_p)
     itot = EK.batch_inv_planar(tot)
     inv_steps, batches = EK.fermat_divsteps_plain(v_fermat)
     if not torch.equal(EK.fermat(v_fermat), inv_steps):
@@ -447,28 +502,40 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
                              "of its algorithm")
     torch.cuda.synchronize()
 
-    # name: (kernel, plain version, the field operations' need (work),
-    # field elements read and written, other bytes moved: the key plane and
-    # the x3 prefixes)
+    def fwd_planes():
+        pre_w, tot_w = EK.epoch_fwd_plain(ox, cx, chunk_c=C, lanes_w=W)
+        return pk(pre_w), tot_w
+
+    # name: (kernel, plain version, the limb-plane plain version (its
+    # outputs with every packed plane unpacked) or None, the field
+    # operations' need (work), field elements read and written, other bytes
+    # moved: the key plane and the x3 prefixes)
     cases = {
         "epoch_fwd": (
-            lambda: EK.epoch_fwd(ox, cx, chunk_c=C, lanes_w=W),
-            lambda: EK.epoch_fwd_plain(ox, cx, chunk_c=C, lanes_w=W),
+            lambda: EK.epoch_fwd_packed(ox_p, cx_p, chunk_c=C, lanes_w=W),
+            lambda: EK.epoch_fwd_packed_plain(ox_p, cx_p, chunk_c=C,
+                                              lanes_w=W),
+            fwd_planes,
             work(costs, T * N, mul=1, sub=1), N + T + T * N + m_tot, 0),
         "epoch_bwd": (
-            lambda: EK.epoch_bwd(ox, oy, cx, cy, pre, itot, htsz=htsz,
-                                 chunk_c=C, lanes_w=W),
+            lambda: EK.epoch_bwd_packed(ox_p, oy_p, cx_p, cy_p, pre_p, itot,
+                                        htsz=htsz, chunk_c=C, lanes_w=W),
+            lambda: EK.epoch_bwd_packed_plain(
+                ox_p, oy_p, cx_p, cy_p, pre_p, itot, htsz=htsz, chunk_c=C,
+                lanes_w=W),
             lambda: EK.epoch_bwd_plain(ox, oy, cx, cy, pre, itot, htsz=htsz,
                                        chunk_c=C, lanes_w=W),
             work(costs, T * N, mul=4, sqr=2, add=1, sub=6),
             2 * N + 2 * T + T * N + m_tot, 8 * T * N * 4),
         "fermat": (
             lambda: EK.fermat(v_fermat),
-            lambda: EK.fermat_plain(v_fermat),
+            lambda: EK.fermat_plain(v_fermat), None,
             inversion_work(costs, m_fermat, batches), 2 * m_fermat, 0),
         "add_const": (
-            lambda: EK.add_const(xs, ys, inv, ccx, ccy),
-            lambda: EK.add_const_plain(xs, ys, inv, ccx, ccy),
+            lambda: EK.add_const_packed(*add_p),
+            lambda: EK.add_const_packed_plain(*add_p),
+            lambda: (lambda x3, y3, pre: (pk(x3), pk(y3), pre))(
+                *EK.add_const_plain(xs, ys, inv, ccx, ccy)),
             work(costs, m_tab, mul=2, sqr=2, add=1, sub=5),
             5 * m_tab + 2,
             2 * m_tab * 4),
@@ -476,41 +543,42 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
     shapes = {"epoch_fwd": f"T={T}, N={N}", "epoch_bwd": f"T={T}, N={N}",
               "fermat": f"m={m_fermat}", "add_const": f"m={m_tab}"}
     records = {}
-    for name, (kern, plain, ops, elems, other) in cases.items():
+    for name, (kern, plain, planes, ops, elems, other) in cases.items():
         got = kern()
-        want = plain()
+        wants = [plain()] + ([planes()] if planes else [])
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
         err = 0
-        for g, w in zip(got, want):
-            if g.shape != w.shape or g.dtype != w.dtype:
-                raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs "
-                                     f"{w.shape}/{w.dtype}")
-            diff = (g.long() - w.long()).abs()
-            err = max(err, int(diff.max()) if diff.numel() else 0)
+        for want in wants:
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want, strict=True):
+                if g.shape != w.shape or g.dtype != w.dtype:
+                    raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs "
+                                         f"{w.shape}/{w.dtype}")
+                diff = (g.long() - w.long()).abs()
+                err = max(err, int(diff.max()) if diff.numel() else 0)
         if err:
-            raise AssertionError(f"{name}: kernel differs from its plain "
-                                 f"version (max abs limb error {err})")
+            raise AssertionError(f"{name}: kernel differs from a plain "
+                                 f"version (max abs word error {err})")
         ms = cuda_ms(kern, reps=20)
         plain_ms = cuda_ms(plain, reps=1, queued=False)
-        # bound_ms: the planes as the kernels take them, 16 int32 words
-        # (64 B) per element; bound_ms_packed: the function's own floor,
-        # 32 B per element
-        bound_ms, bound_by = bound(ops, 64 * elems + other)
-        packed_ms, packed_by = bound(ops, 32 * elems + other)
+        # bound_ms: the function's own floor, ELEM_BYTES (32 B) an element
+        # read or written; bound_ms_planes: the same work moving (16, M)
+        # int32 limb planes, 64 B an element
+        bound_ms, bound_by = bound(ops, ELEM_BYTES * elems + other)
+        planes_ms = bound(ops, PLANE_ELEM_BYTES * elems + other)[0]
         records[name] = dict(
             name=name, route="cuda",
             source="bsgs_tpu_torch/csrc/epoch_kernels.cu",
             replaces=TPU_KERNEL[name], launches=0, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, bound_ms_packed=packed_ms,
-            bound_by_packed=packed_by, shape=shapes[name])
+            library_ms=None, bound_ms_planes=planes_ms, shape=shapes[name])
         log(f"kernel {name} [{label}, {shapes[name]}]: bit-identical to "
-            f"plain; {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
-            f"{bound_ms:.4f} ms by {bound_by}, "
-            f"{packed_ms:.4f} ms at 32 B per element); "
-            f"exact/doubling/edge lanes included")
+            f"its plain version"
+            f"{' and, unpacked, to the limb-plane one' * bool(planes)}; "
+            f"{ms:.4f} ms (plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+            f"by {bound_by}: {100 * bound_ms / ms:.0f}%; {planes_ms:.4f} ms "
+            f"at 64 B an element); exact/doubling/edge lanes included")
         torch.cuda.synchronize()
     records["fermat"].update(
         batches_max=int(batches.max()),
@@ -521,11 +589,11 @@ def check_kernels(device, label: str, htsz: int, m_tab: int,
     # totals inverted after one fold (through the Montgomery kernels of
     # csrc/mont.cuh) and unfolded (16, unfolded: the path's).
     def phase(c, direct_max):
-        pre_c, tot_c = EK.epoch_fwd(ox, cx, chunk_c=c, lanes_w=W)
+        pre_c, tot_c = EK.epoch_fwd_packed(ox_p, cx_p, chunk_c=c, lanes_w=W)
         inv_c = EK.batch_inv_planar(tot_c, chunk_c=c, lanes_w=W,
                                     direct_max=direct_max)
-        return EK.epoch_bwd(ox, oy, cx, cy, pre_c, inv_c, htsz=htsz,
-                            chunk_c=c, lanes_w=W)
+        return EK.epoch_bwd_packed(ox_p, oy_p, cx_p, cy_p, pre_c, inv_c,
+                                   htsz=htsz, chunk_c=c, lanes_w=W)
 
     want = EK.epoch_landing_keys(cx, cy, ox, oy, htsz=htsz)
     trees = []
@@ -598,22 +666,25 @@ def bound(need: dict, nbytes: int) -> tuple:
 
 def check_mont(device, m: int, label: str, costs: dict) -> dict:
     """The two redesigned Montgomery kernels at one tile width, both
-    entries (the points entry the build runs, and the plane entry of the
-    inversion's recursion), at the tile chain length: bit-identical to the
-    serial plain versions and to the segmented plain versions (the
-    kernel's own split), doubling lanes planted; then a ragged width (the
-    points entry pads the last block of chains in registers). Times each
-    pass and the tile's whole inversion (forward, inversion of the
-    totals, backward). Returns the records of the points entry."""
+    entries (the points entry the build runs, on packed planes, and the
+    plane entry of the inversion's recursion), at the tile chain length:
+    bit-identical to the serial plain versions and to the segmented plain
+    versions (the kernel's own split), the points entry to its packed plain
+    versions and, unpacked, to the limb-plane ones, doubling and edge lanes
+    planted; then a ragged width (the points entry pads the last block of
+    chains in registers). Times each pass and the tile's whole inversion
+    (forward, inversion of the totals, backward). Returns the records of
+    the points entry."""
     import numpy as np
     import torch
 
-    from bsgs_tpu_torch.ops import epoch_kernel as EK
+    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
 
     rng = np.random.default_rng(SEED + 7)
     C, W = EK.TILE_CHUNK_C, EK.LANES_W
     S = EK.mont_segments(C)
     kw = dict(chunk_c=C, lanes_w=W)
+    pk, unpk = PL.pack_planes, PL.unpack_planes
 
     def same(what, got, *wants):
         got = got if isinstance(got, tuple) else (got,)
@@ -627,39 +698,46 @@ def check_mont(device, m: int, label: str, costs: dict) -> dict:
 
     for width in (m, 5001):
         xs, ys, cx, _ = tile_points(rng, width, device)
-        pre, tot = EK.mont_fwd_points(xs, ys, cx, **kw)
+        plant_edge_lanes(xs)
+        pts = (pk(xs), pk(ys), pk(cx))
+        pre, tot = EK.mont_fwd_points_packed(*pts, **kw)
+        plane_pre, plane_tot = EK.mont_fwd_points_plain(xs, ys, cx, **kw)
         same(f"mont_fwd points m={width}", (pre, tot),
-             EK.mont_fwd_points_plain(xs, ys, cx, **kw),
-             EK.mont_fwd_points_plain(xs, ys, cx, segments=S, **kw))
+             EK.mont_fwd_points_packed_plain(*pts, **kw),
+             EK.mont_fwd_points_packed_plain(*pts, segments=S, **kw),
+             (pk(plane_pre), plane_tot))
         itot = EK.fermat(tot)
-        inv = EK.mont_bwd_points(xs, ys, cx, pre, itot, **kw)
+        inv = EK.mont_bwd_points_packed(*pts, pre, itot, **kw)
         same(f"mont_bwd points m={width}", inv,
-             EK.mont_bwd_points_plain(xs, ys, cx, pre, itot, **kw),
-             EK.mont_bwd_points_plain(xs, ys, cx, pre, itot, segments=S,
-                                      **kw),
-             EK.fermat(EK.tile_den_plain(xs, ys, cx).to(torch.int32)))
+             EK.mont_bwd_points_packed_plain(*pts, pre, itot, **kw),
+             EK.mont_bwd_points_packed_plain(*pts, pre, itot, segments=S,
+                                             **kw),
+             pk(EK.mont_bwd_points_plain(xs, ys, cx, unpk(pre), itot, **kw)),
+             pk(EK.fermat(EK.tile_den_plain(xs, ys, cx).to(torch.int32))))
     xs, ys, cx, _ = tile_points(rng, m, device)
+    pts = (pk(xs), pk(ys), pk(cx))
     den = EK.tile_den_plain(xs, ys, cx).to(torch.int32)
     vpre, vtot = EK.mont_fwd(den, **kw)
+    ppre, ptot = EK.mont_fwd_points_packed(*pts, **kw)
     same("mont_fwd plane", (vpre, vtot), EK.mont_fwd_plain(den, **kw),
          EK.mont_fwd_segmented_plain(den, segments=S, **kw),
-         EK.mont_fwd_points(xs, ys, cx, **kw))
+         (unpk(ppre), ptot))
     vitot = EK.fermat(vtot)
     same("mont_bwd plane", EK.mont_bwd(den, vpre, vitot, **kw),
          EK.mont_bwd_plain(den, vpre, vitot, **kw),
          EK.mont_bwd_segmented_plain(den, vpre, vitot, segments=S, **kw))
     torch.cuda.synchronize()
 
-    pre, tot = EK.mont_fwd_points(xs, ys, cx, **kw)
+    pre, tot = EK.mont_fwd_points_packed(*pts, **kw)
     itot = EK.fermat(tot)
     dbl = int((xs == cx).all(dim=0).sum())
     records = {}
     for name, kern, plain, backward in (
-            ("mont_fwd", lambda: EK.mont_fwd_points(xs, ys, cx, **kw),
-             lambda: EK.mont_fwd_points_plain(xs, ys, cx, **kw), False),
+            ("mont_fwd", lambda: EK.mont_fwd_points_packed(*pts, **kw),
+             lambda: EK.mont_fwd_points_packed_plain(*pts, **kw), False),
             ("mont_bwd",
-             lambda: EK.mont_bwd_points(xs, ys, cx, pre, itot, **kw),
-             lambda: EK.mont_bwd_points_plain(xs, ys, cx, pre, itot, **kw),
+             lambda: EK.mont_bwd_points_packed(*pts, pre, itot, **kw),
+             lambda: EK.mont_bwd_points_packed_plain(*pts, pre, itot, **kw),
              True)):
         ms = cuda_ms(kern, reps=20)
         plain_ms = cuda_ms(plain, reps=1, queued=False)
@@ -667,30 +745,30 @@ def check_mont(device, m: int, label: str, costs: dict) -> dict:
             (lambda: EK.mont_bwd(den, vpre, vitot, **kw)) if backward
             else (lambda: EK.mont_fwd(den, **kw)), reps=20)
         ops, elems = mont_work(costs, m, C, backward, True, dbl)
-        bound_ms, bound_by = bound(ops, 64 * elems)
-        packed_ms, packed_by = bound(ops, 32 * elems)
+        bound_ms, bound_by = bound(ops, ELEM_BYTES * elems)
+        planes_ms = bound(ops, PLANE_ELEM_BYTES * elems)[0]
         plane_ops, plane_elems = mont_work(costs, m, C, backward, False)
         records[name] = dict(
             name=name, route="cuda", source="bsgs_tpu_torch/csrc/mont.cuh",
             replaces=TPU_KERNEL[name], launches=0, max_abs_err=0, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, bound_ms_packed=packed_ms,
-            bound_by_packed=packed_by,
+            library_ms=None, bound_ms_planes=planes_ms,
             shape=f"points entry, m={m}, chains of {C} in {S} segments",
             plane_entry_ms=plane_ms,
-            plane_entry_bound_ms=bound(plane_ops, 64 * plane_elems)[0])
+            plane_entry_bound_ms=bound(plane_ops,
+                                       ELEM_BYTES * plane_elems)[0])
         log(f"kernel {name} [{label}, points entry, m={m}, chains of {C} "
             f"in {S} segments]: bit-identical to the serial and the "
-            f"segmented plain versions (and at m=5001), {dbl} doubling "
-            f"lanes; {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
-            f"{bound_ms:.4f} ms by {bound_by}: {100 * bound_ms / ms:.0f}%; "
-            f"{packed_ms:.4f} ms at 32 B per element); plane entry "
-            f"{plane_ms:.4f} ms")
+            f"segmented plain versions, packed and unpacked (and at "
+            f"m=5001), {dbl} doubling lanes; {ms:.4f} ms (plain "
+            f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}: "
+            f"{100 * bound_ms / ms:.0f}%; {planes_ms:.4f} ms at 64 B an "
+            f"element); plane entry {plane_ms:.4f} ms")
 
     def fold():
-        p_, t_ = EK.mont_fwd_points(xs, ys, cx, **kw)
+        p_, t_ = EK.mont_fwd_points_packed(*pts, **kw)
         i_ = EK.batch_inv_planar(t_)
-        return EK.mont_bwd_points(xs, ys, cx, p_, i_, **kw)
+        return EK.mont_bwd_points_packed(*pts, p_, i_, **kw)
 
     fold_ms = cuda_ms(fold, reps=20)
     records["mont_bwd"]["tile_inversion_ms"] = fold_ms
@@ -707,17 +785,17 @@ def sweep_mont(device, m: int, label: str) -> list:
     import numpy as np
     import torch
 
-    from bsgs_tpu_torch.ops import epoch_kernel as EK
+    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
 
     rng = np.random.default_rng(SEED + 9)
-    xs, ys, cx, _ = tile_points(rng, m, device)
+    xs, ys, cx = (PL.pack_planes(v) for v in tile_points(rng, m, device)[:3])
     W = EK.LANES_W
 
     def fold(C, S):
         kw = dict(chunk_c=C, lanes_w=W, segments=S)
-        p_, t_ = EK.mont_fwd_points(xs, ys, cx, **kw)
+        p_, t_ = EK.mont_fwd_points_packed(xs, ys, cx, **kw)
         i_ = EK.batch_inv_planar(t_)
-        return EK.mont_bwd_points(xs, ys, cx, p_, i_, **kw)
+        return EK.mont_bwd_points_packed(xs, ys, cx, p_, i_, **kw)
 
     want = fold(EK.TILE_CHUNK_C, EK.mont_segments(EK.TILE_CHUNK_C))
     out = []
@@ -726,11 +804,12 @@ def sweep_mont(device, m: int, label: str) -> list:
         if not torch.equal(fold(C, S), want):
             raise AssertionError(f"tile inversion differs at C={C}, S={S}")
         kw = dict(chunk_c=C, lanes_w=W, segments=S)
-        fwd = cuda_ms(lambda: EK.mont_fwd_points(xs, ys, cx, **kw), 20)
-        p_, t_ = EK.mont_fwd_points(xs, ys, cx, **kw)
-        i_ = EK.batch_inv_planar(t_)
-        bwd = cuda_ms(lambda: EK.mont_bwd_points(xs, ys, cx, p_, i_, **kw),
+        fwd = cuda_ms(lambda: EK.mont_fwd_points_packed(xs, ys, cx, **kw),
                       20)
+        p_, t_ = EK.mont_fwd_points_packed(xs, ys, cx, **kw)
+        i_ = EK.batch_inv_planar(t_)
+        bwd = cuda_ms(
+            lambda: EK.mont_bwd_points_packed(xs, ys, cx, p_, i_, **kw), 20)
         inv = cuda_ms(lambda: EK.batch_inv_planar(t_), 20)
         whole = cuda_ms(lambda: fold(C, S), 20)
         out.append(dict(chunk_c=C, segments=S, seg_len=C // S, fwd_ms=fwd,
@@ -1271,6 +1350,403 @@ extern "C" int parent_probe_rows(const void* bucket, const void* disc,
 }
 """
 
+# The packed layout's study (python3 chip_smoke.py --packed), appended to
+# SIDE_SRC in that mode only: a frozen copy of the parent's kernels on
+# (16, M) int32 limb planes (epoch_fwd, epoch_bwd, add_const and the
+# Montgomery points entry at two positions a thread), to time the packed
+# kernels against in turns; and the packed epoch_fwd's other designs
+# (VARIANTS_FWD: the grid order, when the offsets are loaded).
+PLANE_STUDY_SRC = r"""
+#include "mont.cuh"
+
+namespace plane {
+
+constexpr int kBlock = 128;
+
+__global__ void __launch_bounds__(kBlock)
+    plane_fwd_kernel(const int32_t* __restrict__ ox,
+                     const int32_t* __restrict__ cx, int32_t* __restrict__ pre,
+                     int32_t* __restrict__ tot, int T, int N, int C, int W) {
+  const int nb = N / (C * W);
+  const long long threads = (long long)T * nb * W;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= threads) return;
+  const int t = (int)(g / ((long long)nb * W));
+  const int r = (int)(g - (long long)t * nb * W);
+  const int jb = r / W;
+  const long long base = (long long)jb * C * W + (r - jb * W);
+  const long long tn = (long long)T * N;
+  const Fe mx = bsgs::fe_load(cx + t, 4ull * T);
+  const Fe one = bsgs::fe_one();
+  Fe run = one;
+  for (int c = 0; c < C; ++c) {
+    const long long col = base + (long long)c * W;
+    Fe d = bsgs::sub_mod(bsgs::fe_load(ox + col, 4ull * N), mx);
+    d = bsgs::fe_select(bsgs::fe_is_zero(d), one, d);
+    bsgs::fe_store(pre, tn, (long long)t * N + col, run);
+    run = bsgs::mul_mod(run, d);
+  }
+  bsgs::fe_store(tot, threads, g, run);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    plane_bwd_kernel(const int32_t* __restrict__ ox,
+                     const int32_t* __restrict__ oy,
+                     const int32_t* __restrict__ cx,
+                     const int32_t* __restrict__ cy,
+                     const int32_t* __restrict__ pre,
+                     const int32_t* __restrict__ itot,
+                     int32_t* __restrict__ out, int T, int N, int C, int W,
+                     int htsz, uint64_t step_n, uint64_t step_tn) {
+  const long long chains = (long long)(N / (C * W)) * W;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= T * chains) return;
+  const int t = (int)(g / chains);
+  const long long r = g - t * chains;
+  const long long jb = r / W;
+  const Fe mx = bsgs::fe_load(cx + t, 4ull * T);
+  const Fe my = bsgs::fe_load(cy + t, 4ull * T);
+  const Fe one = bsgs::fe_one();
+  Fe run = bsgs::fe_load(itot + g, 4ull * T * chains);
+  long long col = jb * C * W + (r - jb * W) + (long long)(C - 1) * W;
+  for (int i = 0; i < C; ++i, col -= W) {
+    const long long pc = (long long)t * N + col;
+    const Fe oxv = bsgs::fe_load(ox + col, step_n);
+    const Fe oyv = bsgs::fe_load(oy + col, step_n);
+    Fe d = bsgs::sub_mod(oxv, mx);
+    const bool exact = bsgs::fe_is_zero(d);
+    d = bsgs::fe_select(exact, one, d);
+    const Fe inv = bsgs::mul_mod(run, bsgs::fe_load(pre + pc, step_tn));
+    run = bsgs::mul_mod(run, d);
+    const Fe lp = bsgs::mul_mod(bsgs::sub_mod(oyv, my), inv);
+    const Fe xp = bsgs::sub_mod(bsgs::sub_mod(bsgs::sqr_mod(lp), mx), oxv);
+    const Fe lm = bsgs::mul_mod(bsgs::add_mod(oyv, my), inv);
+    const Fe xm = bsgs::sub_mod(bsgs::sub_mod(bsgs::sqr_mod(lm), mx), oxv);
+    uint32_t row[8] = {0, 0, 0, 0, exact ? 1u : 0u, 0, 0, 0};
+    bsgs::probe_key(xp, htsz, row[0], row[1]);
+    bsgs::probe_key(xm, htsz, row[2], row[3]);
+    char* a = (char*)(out + pc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j, a += step_tn) *(int32_t*)a = (int32_t)row[j];
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+    plane_addc_kernel(const int32_t* __restrict__ xs,
+                      const int32_t* __restrict__ ys,
+                      const int32_t* __restrict__ inv,
+                      const int32_t* __restrict__ cx,
+                      const int32_t* __restrict__ cy,
+                      int32_t* __restrict__ x3, int32_t* __restrict__ y3,
+                      int32_t* __restrict__ prefix, int M) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= M) return;
+  const Fe cxv = bsgs::fe_load(cx, 4);
+  const Fe cyv = bsgs::fe_load(cy, 4);
+  const Fe x = bsgs::fe_load(xs + g, 4ull * M);
+  const Fe y = bsgs::fe_load(ys + g, 4ull * M);
+  const bool dbl = bsgs::fe_is_zero(bsgs::sub_mod(cxv, x));
+  const Fe x2 = bsgs::sqr_mod(x);
+  const Fe num = dbl ? bsgs::add_mod(bsgs::add_mod(x2, x2), x2)
+                     : bsgs::sub_mod(cyv, y);
+  const Fe lam = bsgs::mul_mod(num, bsgs::fe_load(inv + g, 4ull * M));
+  const Fe xr = bsgs::sub_mod(bsgs::sqr_mod(lam), bsgs::add_mod(x, cxv));
+  const Fe yr = bsgs::sub_mod(bsgs::mul_mod(lam, bsgs::sub_mod(x, xr)), y);
+  bsgs::fe_store(x3, M, g, xr);
+  bsgs::fe_store(y3, M, g, yr);
+  prefix[g] = (int32_t)xr.v[1];
+  prefix[(long long)M + g] = (int32_t)xr.v[0];
+}
+
+// the points entry's denominator on limb planes; 1 past the plane's end
+__device__ __forceinline__ Fe plane_den(const int32_t* __restrict__ v,
+                                        const int32_t* __restrict__ ys,
+                                        const Fe& cx, long long M,
+                                        long long col) {
+  if (col >= M) return bsgs::fe_one();
+  const Fe x = bsgs::fe_load(v + col, 4ull * M);
+  const Fe d = bsgs::sub_mod(cx, x);
+  if (!bsgs::fe_is_zero(d)) return d;
+  const Fe y = bsgs::fe_load(ys + col, 4ull * M);
+  return bsgs::add_mod(y, y);
+}
+
+template <int L>
+__global__ void __launch_bounds__(bsgs::kMontLanes * bsgs::kMontMaxSegments)
+    plane_mfwd_kernel(const int32_t* __restrict__ v,
+                      const int32_t* __restrict__ ys,
+                      const int32_t* __restrict__ cxp,
+                      int32_t* __restrict__ pre, int32_t* __restrict__ tot,
+                      long long M, long long T, int W) {
+  __shared__ bsgs::MontScratch sm;
+  const bsgs::MontPlace p = bsgs::mont_place(L, W);
+  const Fe cx = bsgs::fe_load(cxp, 4);
+  Fe loc[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i)
+    loc[i] = plane_den(v, ys, cx, M, p.base + (long long)(p.s * L + i) * W);
+  Fe acc = loc[0];
+  loc[0] = bsgs::fe_one();
+#pragma unroll
+  for (int i = 1; i < L; ++i) {
+    const Fe e = loc[i];
+    loc[i] = acc;
+    acc = bsgs::mul_mod(acc, e);
+  }
+  bsgs::sm_put(sm, p.s, p.lane, acc);
+  __syncthreads();
+  for (int d = 1; d < p.S; d <<= 1) {
+    const bool take = p.s >= d;
+    Fe other;
+    if (take) other = bsgs::sm_get(sm, p.s - d, p.lane);
+    __syncthreads();
+    if (take) {
+      acc = bsgs::mul_mod(other, acc);
+      bsgs::sm_put(sm, p.s, p.lane, acc);
+    }
+    __syncthreads();
+  }
+  if (p.s == p.S - 1) bsgs::fe_store(tot, T, p.chain, acc);
+  const bool first = p.s == 0;
+  Fe off;
+  if (!first) off = bsgs::sm_get(sm, p.s - 1, p.lane);
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const long long col = p.base + (long long)(p.s * L + i) * W;
+    if (col >= M) break;
+    const Fe r = first ? loc[i] : (i == 0 ? off : bsgs::mul_mod(off, loc[i]));
+    bsgs::fe_store(pre, M, col, r);
+  }
+}
+
+template <int L>
+__global__ void __launch_bounds__(bsgs::kMontLanes * bsgs::kMontMaxSegments)
+    plane_mbwd_kernel(const int32_t* __restrict__ v,
+                      const int32_t* __restrict__ ys,
+                      const int32_t* __restrict__ cxp,
+                      const int32_t* __restrict__ pre,
+                      const int32_t* __restrict__ itot,
+                      int32_t* __restrict__ out, long long M, long long T,
+                      int W) {
+  __shared__ bsgs::MontScratch sm;
+  const bsgs::MontPlace p = bsgs::mont_place(L, W);
+  const Fe cx = bsgs::fe_load(cxp, 4);
+  Fe e[L], pr[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const long long col = p.base + (long long)(p.s * L + i) * W;
+    e[i] = plane_den(v, ys, cx, M, col);
+    pr[i] = col < M ? bsgs::fe_load(pre + col, 4ull * M) : bsgs::fe_one();
+  }
+  Fe acc = e[0];
+#pragma unroll
+  for (int i = 1; i < L; ++i) acc = bsgs::mul_mod(acc, e[i]);
+  bsgs::sm_put(sm, p.s, p.lane, acc);
+  __syncthreads();
+  acc = p.s + 1 < p.S ? bsgs::sm_get(sm, p.s + 1, p.lane)
+                      : bsgs::fe_load(itot + p.chain, 4ull * T);
+  __syncthreads();
+  bsgs::sm_put(sm, p.s, p.lane, acc);
+  __syncthreads();
+  for (int d = 1; d < p.S; d <<= 1) {
+    const bool take = p.s + d < p.S;
+    Fe other;
+    if (take) other = bsgs::sm_get(sm, p.s + d, p.lane);
+    __syncthreads();
+    if (take) {
+      acc = bsgs::mul_mod(acc, other);
+      bsgs::sm_put(sm, p.s, p.lane, acc);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = L - 1; i >= 0; --i) {
+    const long long col = p.base + (long long)(p.s * L + i) * W;
+    if (col < M) bsgs::fe_store(out, M, col, bsgs::mul_mod(acc, pr[i]));
+    if (i > 0) acc = bsgs::mul_mod(acc, e[i]);
+  }
+}
+
+// The packed epoch_fwd's other designs: kGrouped puts the T blocks that
+// walk the same chains for the T jobs next to each other in the grid
+// (block b: job b % T), otherwise job t's chains fill blocks t * nbk ...
+// (the parent's order); kBatch 0 loads each offset one step ahead of its
+// use, 1 where it is used, and k > 1 loads k offsets at once, then walks
+// them, with kAhead the next k loaded before the walk.
+template <bool kGrouped, int kBatch, bool kAhead = false>
+__global__ void __launch_bounds__(kBlock)
+    variant_fwd_kernel(const int32_t* __restrict__ ox,
+                       const int32_t* __restrict__ cx,
+                       int32_t* __restrict__ pre, int32_t* __restrict__ tot,
+                       int T, int N, int C, int W, long long chains,
+                       uint64_t step_n, uint64_t step_c, uint64_t step_tn) {
+  const long long nbk = (chains + kBlock - 1) / kBlock;
+  const int t = kGrouped ? (int)(blockIdx.x % T) : (int)(blockIdx.x / nbk);
+  const long long r =
+      (kGrouped ? (long long)(blockIdx.x / T)
+                : (long long)blockIdx.x - (long long)t * nbk) * kBlock +
+      threadIdx.x;
+  if (r >= chains) return;
+  const long long jb = r / W;
+  const long long base = jb * C * W + (r - jb * W);
+  const Fe mx = bsgs::fe_load_packed(cx + t, step_c);
+  const Fe one = bsgs::fe_one();
+  Fe run = one;
+  int32_t* out = pre + (long long)t * N + base;
+  if constexpr (kBatch > 1) {
+    Fe o[kBatch], nx[kBatch];
+    if (kAhead) {
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        if (k < C)
+          nx[k] = bsgs::fe_load_packed(ox + base + (long long)k * W, step_n);
+    }
+    for (int c0 = 0; c0 < C; c0 += kBatch) {
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (kAhead) {
+          o[k] = nx[k];
+          if (c0 + kBatch + k < C)
+            nx[k] = bsgs::fe_load_packed(
+                ox + base + (long long)(c0 + kBatch + k) * W, step_n);
+        } else if (c0 + k < C) {
+          o[k] = bsgs::fe_load_packed(ox + base + (long long)(c0 + k) * W,
+                                      step_n);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (c0 + k >= C) break;
+        Fe d = bsgs::sub_mod(o[k], mx);
+        d = bsgs::fe_select(bsgs::fe_is_zero(d), one, d);
+        bsgs::fe_store_packed(out + (long long)(c0 + k) * W, step_tn, run);
+        run = bsgs::mul_mod(run, d);
+      }
+    }
+  } else {
+    Fe o = bsgs::fe_load_packed(ox + base, step_n);
+    for (int c = 0; c < C; ++c) {
+      if (kBatch == 1 && c > 0)
+        o = bsgs::fe_load_packed(ox + base + (long long)c * W, step_n);
+      Fe d = bsgs::sub_mod(o, mx);
+      if (kBatch == 0 && c + 1 < C)
+        o = bsgs::fe_load_packed(ox + base + (long long)(c + 1) * W, step_n);
+      d = bsgs::fe_select(bsgs::fe_is_zero(d), one, d);
+      bsgs::fe_store_packed(out + (long long)c * W, step_tn, run);
+      run = bsgs::mul_mod(run, d);
+    }
+  }
+  bsgs::fe_store(tot, (long long)T * chains, (long long)t * chains + r, run);
+}
+
+}  // namespace plane
+
+extern "C" int plane_epoch_fwd(const void* ox, const void* cx, void* pre,
+                               void* tot, int T, int N, int C, int W,
+                               void* stream) {
+  const long long threads = (long long)T * (N / (C * W)) * W;
+  plane::plane_fwd_kernel<<<(unsigned)((threads + 127) / 128), 128, 0,
+                            (cudaStream_t)stream>>>(
+      (const int32_t*)ox, (const int32_t*)cx, (int32_t*)pre, (int32_t*)tot,
+      T, N, C, W);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int plane_epoch_bwd(const void* ox, const void* oy, const void* cx,
+                               const void* cy, const void* pre,
+                               const void* itot, void* out, int T, int N,
+                               int C, int W, int htsz, void* stream) {
+  const long long threads = (long long)T * (N / (C * W)) * W;
+  plane::plane_bwd_kernel<<<(unsigned)((threads + 127) / 128), 128, 0,
+                            (cudaStream_t)stream>>>(
+      (const int32_t*)ox, (const int32_t*)oy, (const int32_t*)cx,
+      (const int32_t*)cy, (const int32_t*)pre, (const int32_t*)itot,
+      (int32_t*)out, T, N, C, W, htsz, 4ull * N, 4ull * T * N);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int plane_add_const(const void* xs, const void* ys,
+                               const void* inv, const void* cx,
+                               const void* cy, void* x3, void* y3,
+                               void* prefix, int M, void* stream) {
+  plane::plane_addc_kernel<<<(M + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)xs, (const int32_t*)ys, (const int32_t*)inv,
+      (const int32_t*)cx, (const int32_t*)cy, (int32_t*)x3, (int32_t*)y3,
+      (int32_t*)prefix, M);
+  return (int)cudaGetLastError();
+}
+
+// the points entry on limb planes, chains of C spaced W apart in S
+// segments of two positions (C = 2 S), as the package's tile takes them
+extern "C" int plane_mont_points(int backward, const void* xs,
+                                 const void* ys, const void* cx,
+                                 const void* pre, const void* itot,
+                                 void* out, void* tot, int M, int C, int W,
+                                 int S, void* stream) {
+  if (C != 2 * S || W % bsgs::kMontLanes || S > bsgs::kMontMaxSegments)
+    return (int)cudaErrorInvalidValue;
+  const long long span = (long long)C * W;
+  const long long blocks = (M + span - 1) / span;
+  const long long T = blocks * W;
+  const dim3 grid((unsigned)(blocks * (W / bsgs::kMontLanes)));
+  const dim3 block(bsgs::kMontLanes, S);
+  if (backward)
+    plane::plane_mbwd_kernel<2><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)xs, (const int32_t*)ys, (const int32_t*)cx,
+        (const int32_t*)pre, (const int32_t*)itot, (int32_t*)out, M, T, W);
+  else
+    plane::plane_mfwd_kernel<2><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)xs, (const int32_t*)ys, (const int32_t*)cx,
+        (int32_t*)out, (int32_t*)tot, M, T, W);
+  return (int)cudaGetLastError();
+}
+
+// variant = 100 * ahead + 10 * grouped + batch (VARIANTS_FWD)
+extern "C" int variant_epoch_fwd(int variant, const void* ox, const void* cx,
+                                 void* pre, void* tot, int T, int N, int C,
+                                 int W, int ldc, void* stream) {
+  const long long chains = (long long)(N / (C * W)) * W;
+  const unsigned grid = (unsigned)((chains + 127) / 128 * T);
+  void (*kernel)(const int32_t*, const int32_t*, int32_t*, int32_t*, int,
+                 int, int, int, long long, uint64_t, uint64_t, uint64_t) =
+      nullptr;
+  switch (variant) {
+    case 0: kernel = plane::variant_fwd_kernel<false, 0>; break;
+    case 1: kernel = plane::variant_fwd_kernel<false, 1>; break;
+    case 4: kernel = plane::variant_fwd_kernel<false, 4>; break;
+    case 8: kernel = plane::variant_fwd_kernel<false, 8>; break;
+    case 10: kernel = plane::variant_fwd_kernel<true, 0>; break;
+    case 11: kernel = plane::variant_fwd_kernel<true, 1>; break;
+    case 14: kernel = plane::variant_fwd_kernel<true, 4>; break;
+    case 2: kernel = plane::variant_fwd_kernel<false, 2>; break;
+    case 12: kernel = plane::variant_fwd_kernel<true, 2>; break;
+    case 104: kernel = plane::variant_fwd_kernel<false, 4, true>; break;
+    case 112: kernel = plane::variant_fwd_kernel<true, 2, true>; break;
+    case 114: kernel = plane::variant_fwd_kernel<true, 4, true>; break;
+  }
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)ox, (const int32_t*)cx, (int32_t*)pre, (int32_t*)tot,
+      T, N, C, W, chains, 4ull * N, 4ull * ldc, 4ull * T * N);
+  return (int)cudaGetLastError();
+}
+"""
+
+# variant_epoch_fwd's designs of the packed epoch_fwd in the study, beside
+# the package's (the parent's order, batches of 2 with the next batch
+# ahead): the jobs in the parent's order or grouped (T neighbouring blocks
+# walk the same chains), each offset loaded one step ahead or where it is
+# used, or in batches of 2-8, with the next batch ahead or not
+VARIANTS_FWD = {0: "parent's order, one ahead", 1: "parent's order, in place",
+                2: "parent's order, batches of 2",
+                4: "parent's order, batches of 4",
+                8: "parent's order, batches of 8",
+                104: "parent's order, batches of 4, next batch ahead",
+                10: "grouped, one ahead", 11: "grouped, in place",
+                12: "grouped, batches of 2", 14: "grouped, batches of 4",
+                112: "grouped, batches of 2, next batch ahead",
+                114: "grouped, batches of 4, next batch ahead"}
+
 # the field operations of SIDE_SRC, in side_op's order, with their values
 # as Python integers; the study adds the schoolbook multiply ("mul_rows",
 # rows_op)
@@ -1293,19 +1769,23 @@ WIDE_RATIO = (1.9, 3.0)
 
 class SideLib:
     """Build the side library (SIDE_SRC over csrc/field.cuh, STUDY_SRC with
-    study, PROBE_STUDY_SRC with probe_study) with nvcc into a temporary
-    directory, started at once so that it builds while the package's
-    sources do; .load() waits for it and loads it."""
+    study, PROBE_STUDY_SRC with probe_study, PLANE_STUDY_SRC with
+    plane_study) with nvcc into a temporary directory, started at once so
+    that it builds while the package's sources do; .load() waits for it and
+    loads it."""
 
-    def __init__(self, study: bool = False, probe_study: bool = False):
+    def __init__(self, study: bool = False, probe_study: bool = False,
+                 plane_study: bool = False):
         from bsgs_tpu_torch.ops import _cuda
 
         self.study = study
         self.probe_study = probe_study
+        self.plane_study = plane_study
         self.dir = tempfile.TemporaryDirectory()
         src = Path(self.dir.name) / "side.cu"
         src.write_text(SIDE_SRC + (STUDY_SRC if study else "")
-                       + (PROBE_STUDY_SRC if probe_study else ""))
+                       + (PROBE_STUDY_SRC if probe_study else "")
+                       + (PLANE_STUDY_SRC if plane_study else ""))
         self.path = Path(self.dir.name) / "libside.so"
         self.proc = subprocess.Popen(
             [_cuda._nvcc(), "-gencode", _cuda.ARCH, "-std=c++17", "-O3",
@@ -1336,6 +1816,15 @@ class SideLib:
                 lib.parent_probe_rows.argtypes = [P] * 4 + [I] * 2 + [P]
                 lib.layout_probe_rows.argtypes = [P] * 5 + [I] * 4 + [P]
                 fns += [lib.parent_probe_rows, lib.layout_probe_rows]
+            if self.plane_study:
+                lib.plane_epoch_fwd.argtypes = [P] * 4 + [I] * 4 + [P]
+                lib.plane_epoch_bwd.argtypes = [P] * 7 + [I] * 5 + [P]
+                lib.plane_add_const.argtypes = [P] * 8 + [I, P]
+                lib.plane_mont_points.argtypes = [I] + [P] * 7 + [I] * 4 + [P]
+                lib.variant_epoch_fwd.argtypes = [I] + [P] * 4 + [I] * 5 + [P]
+                fns += [lib.plane_epoch_fwd, lib.plane_epoch_bwd,
+                        lib.plane_add_const, lib.plane_mont_points,
+                        lib.variant_epoch_fwd]
             for fn in fns:
                 fn.restype = I
             self.lib = lib
@@ -1530,24 +2019,16 @@ def bwd_resources(libs, side) -> dict:
     the parent's kernel and the K-jobs layouts, from cuobjdump -res-usage;
     the run fails if the package's kernel spills (local memory or a
     stack)."""
-    from bsgs_tpu_torch.ops import _cuda
-
     lib = next(p for p in libs if p.name.startswith("libepoch_kernels"))
-    exe = Path(_cuda._nvcc()).with_name("cuobjdump")
     found = {}
-    for path in (lib, side.path):
-        out = subprocess.run([str(exe), "-res-usage", str(path)],
-                             capture_output=True, text=True, timeout=300,
-                             check=True).stdout
-        for name, body in re.findall(
-                r"Function (\S*epoch_bwd_kernel\S*):\s*\n\s*([^\n]*)", out):
-            layout = re.search(r"layout_epoch_bwd_kernelILi(\d)ELi0E", name)
-            key = ("rows" if "rows_epoch_bwd" in name
-                   else f"K={layout.group(1)}" if layout
-                   else None if "layout_" in name else "package")
-            if key:
-                found[key] = dict((n, int(v)) for n, v in re.findall(
-                    r"(REG|STACK|SHARED|LOCAL):(\d+)", body))
+    for name, use in kernel_resources([lib, side.path],
+                                      r"epoch_bwd_kernel").items():
+        layout = re.search(r"layout_epoch_bwd_kernelILi(\d)ELi0E", name)
+        key = ("rows" if "rows_epoch_bwd" in name
+               else f"K={layout.group(1)}" if layout
+               else None if "layout_" in name else "package")
+        if key:
+            found[key] = use
     log(f"resources: epoch_bwd kernels {found}")
     if found["package"]["LOCAL"] or found["package"]["STACK"]:
         raise AssertionError(f"epoch_bwd spills: {found['package']}")
@@ -1584,17 +2065,17 @@ def bwd_counts(libs, side, costs: dict) -> dict:
 
 def bwd_bytes(T: int, N: int, C: int) -> int:
     """Bytes epoch_bwd must move at T x N: ox, oy, the centers, pre and the
-    inverted totals read once (64 B an element as int32 limb planes), the
-    (8, T*N) key plane written once."""
-    return 64 * (2 * N + 2 * T + T * N + T * N // C) + 32 * T * N
+    inverted totals read once (ELEM_BYTES an element, the function's
+    floor), the (8, T*N) key plane written once."""
+    return ELEM_BYTES * (2 * N + 2 * T + T * N + T * N // C) + 32 * T * N
 
 
 def bwd_inputs(rng, T: int, N: int, device, edge: bool = True):
     """One phase's epoch_bwd inputs at T x N, the chain layout of the main
-    path: random planes with exact lanes (Ox == Mx) and, with edge, edge
-    values in the first lanes of the offsets and in two centers, and (pre,
-    itot) from epoch_fwd and the inversion."""
-    from bsgs_tpu_torch.ops import epoch_kernel as EK
+    path: random limb planes with exact lanes (Ox == Mx) and, with edge,
+    edge values in the first lanes of the offsets and in two centers, and
+    (pre, itot) from epoch_fwd and the inversion (pre unpacked)."""
+    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
 
     ox, oy = (random_planes(rng, 16, N, device) for _ in range(2))
     cx, cy = (random_planes(rng, 16, T, device) for _ in range(2))
@@ -1606,9 +2087,21 @@ def bwd_inputs(rng, T: int, N: int, device, edge: bool = True):
         cy[:, T - 1] = ox[:, 5]
     for t, j in ((0, 5), (T - 1, N // 3), (T // 2, N - 1)):
         ox[:, j] = cx[:, t]
-    pre, tot = EK.epoch_fwd(ox, cx, chunk_c=EK.CHUNK_C, lanes_w=EK.LANES_W)
+    pre, tot = EK.epoch_fwd_packed(PL.pack_planes(ox), PL.pack_planes(cx),
+                                   chunk_c=EK.CHUNK_C, lanes_w=EK.LANES_W)
     itot = EK.batch_inv_planar(tot)
-    return ox, oy, cx, cy, pre, itot
+    return ox, oy, cx, cy, PL.unpack_planes(pre), itot
+
+
+def package_bwd(ox, oy, cx, cy, pre, itot, htsz: int):
+    """The package's epoch_bwd on bwd_inputs' limb planes (packed here:
+    the kernel reads packed ones)."""
+    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
+
+    pk = PL.pack_planes
+    return EK.epoch_bwd_packed(pk(ox), pk(oy), pk(cx), pk(cy), pk(pre), itot,
+                               htsz=htsz, chunk_c=EK.CHUNK_C,
+                               lanes_w=EK.LANES_W)
 
 
 def side_bwd(lib, layout, ox, oy, cx, cy, pre, itot, htsz: int):
@@ -1648,8 +2141,7 @@ def check_epoch_bwd(device, side, shapes) -> None:
         ox, oy, cx, cy, pre, itot = bwd_inputs(rng, T, N, device)
         want = EK.epoch_bwd_plain(ox, oy, cx, cy, pre, itot, htsz=htsz,
                                   **kw)
-        got = {"package": EK.epoch_bwd(ox, oy, cx, cy, pre, itot, htsz=htsz,
-                                       **kw)}
+        got = {"package": package_bwd(ox, oy, cx, cy, pre, itot, htsz)}
         for layout in ("rows", 2, 4) if side.study else ():
             got[layout] = side_bwd(lib, layout, ox, oy, cx, cy, pre, itot,
                                    htsz)
@@ -1667,19 +2159,22 @@ def sweep_epoch_bwd(device, side, counts: dict, Ts=(4, 32),
     """The layout, chosen by measurement: at each T the schoolbook kernel,
     the package's (one job a thread) and K = 2, 4 jobs a thread in turns
     (forward, then backward), each against the pipe-counted bound; then
-    the package's kernel's arithmetic alone and its memory alone."""
+    the package's kernel's arithmetic alone and its memory alone (on limb
+    planes, as the parent read them)."""
     import numpy as np
 
-    from bsgs_tpu_torch.ops import epoch_kernel as EK
+    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
 
     lib = side.load()
     rng = np.random.default_rng(SEED + 19)
     out = {}
     for T in Ts:
         planes = bwd_inputs(rng, T, N, device, edge=False)
+        packed = [PL.pack_planes(v) for v in planes[:5]] + [planes[5]]
         runs = {"rows": lambda: side_bwd(lib, "rows", *planes, 20),
-                "package": lambda: EK.epoch_bwd(
-                    *planes, htsz=20, chunk_c=EK.CHUNK_C, lanes_w=EK.LANES_W)}
+                "package": lambda: EK.epoch_bwd_packed(
+                    *packed, htsz=20, chunk_c=EK.CHUNK_C,
+                    lanes_w=EK.LANES_W)}
         for k in (2, 4):
             runs[f"K={k}"] = lambda k=k: side_bwd(lib, k, *planes, 20)
         order = list(runs) + list(reversed(runs))
@@ -1727,6 +2222,225 @@ def epoch_bwd_checks(libs, side, costs: dict, device) -> dict:
     return out
 
 
+def packed_resources(libs) -> dict:
+    """Registers and spills of the packed kernels that no other check
+    reads (epoch_fwd and add_const: epoch_bwd_checks reads epoch_bwd's,
+    mont_resources the Montgomery kernels'); the run fails if one spills."""
+    lib = next(p for p in libs if p.name.startswith("libepoch_kernels"))
+    found = kernel_resources([lib], r"epoch_fwd_kernel|add_const_kernel")
+    out = {("epoch_fwd" if "epoch_fwd" in k else "add_const"): v
+           for k, v in found.items()}
+    log(f"resources: packed kernels {out}")
+    if sorted(out) != ["add_const", "epoch_fwd"] or any(
+            v["LOCAL"] or v["STACK"] for v in out.values()):
+        raise AssertionError(f"packed kernels' resources: {out}")
+    return out
+
+
+def sweep_packed(side, libs, costs: dict, device) -> dict:
+    """The packed layout's study (--packed): the parent's kernels on (16, M)
+    limb planes (PLANE_STUDY_SRC, a frozen copy) and the package's on
+    packed planes, on the same values, held equal (the packed outputs
+    unpacked; the package's also to their plain versions) and timed in
+    turns (plane, packed, ..., packed, plane), launches back to back
+    (cuda_ms) and with the L2 flushed before each (cuda_ms_cold), against
+    the function's floor (ELEM_BYTES an element) and the planes' (64 B):
+    epoch_fwd with its two variants and epoch_bwd at T=4, N=2^18;
+    add_const and the Montgomery points entry at both paths' tiles (2^18
+    and 2^20 lanes); epoch_bwd's time right after the forward pass and the
+    inversion, as an epoch runs it, against its time after an L2 flush
+    (what the L2 still holds of pre and the offsets); each kernel's
+    registers and spills."""
+    import numpy as np
+    import torch
+
+    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
+
+    lib = side.load()
+    rng = np.random.default_rng(SEED + 23)
+    pk, unpk = PL.pack_planes, PL.unpack_planes
+    i32 = torch.int32
+
+    def call(fn, *args):
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"study launch failed ({err})")
+
+    def equal(what, got, want):
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want, strict=True)):
+            raise AssertionError(f"packed study: {what} differ")
+
+    def in_turns(label, runs, need, elems, other=0):
+        order = list(runs) + list(reversed(runs))
+        warm = collections.defaultdict(list)
+        cold = collections.defaultdict(list)
+        for name in order:
+            warm[name].append(cuda_ms(runs[name], reps=20))
+            cold[name].append(cuda_ms_cold(runs[name], reps=10))
+        floor, by = bound(need, ELEM_BYTES * elems + other)
+        planes = bound(need, PLANE_ELEM_BYTES * elems + other)[0]
+        log(f"packed study [{label}] (in turns {order}): "
+            + ", ".join(f"{n} {min(warm[n]):.4f} ms "
+                        f"({100 * floor / min(warm[n]):.0f}%), L2 flushed "
+                        f"{min(cold[n]):.4f} ms "
+                        f"({100 * floor / min(cold[n]):.0f}%)" for n in runs)
+            + f"; the function's floor {floor:.4f} ms by {by}, "
+            f"{planes:.4f} ms at 64 B an element")
+        return dict(bound_ms=floor, bound_by=by, bound_ms_planes=planes,
+                    ms=dict(warm), ms_l2_cold=dict(cold))
+
+    out = {}
+    # the epoch: one phase of T=4 jobs x N=2^18 offsets
+    T, N, C, W = 4, 1 << 18, EK.CHUNK_C, EK.LANES_W
+    ox, oy = (random_planes(rng, 16, N, device) for _ in range(2))
+    cx, cy = (random_planes(rng, 16, T, device) for _ in range(2))
+    for t, j in ((0, 5), (1, N // 3), (T - 1, N - 1)):
+        ox[:, j] = cx[:, t]
+    oxp, oyp, cxp, cyp = (pk(v) for v in (ox, oy, cx, cy))
+    kw = dict(chunk_c=C, lanes_w=W)
+    pre_pl = torch.empty((16, T * N), dtype=i32, device=device)
+    tot_pl = torch.empty((16, T * N // C), dtype=i32, device=device)
+    pre_v = torch.empty((8, T * N), dtype=i32, device=device)
+    tot_v = torch.empty_like(tot_pl)
+    fwd = {
+        "plane (parent)": lambda: call(lib.plane_epoch_fwd, ox, cx, pre_pl,
+                                       tot_pl, T, N, C, W),
+        "packed (package)": lambda: EK.epoch_fwd_packed(oxp, cxp, **kw),
+    }
+    for v, name in VARIANTS_FWD.items():
+        fwd[name] = lambda v=v: call(lib.variant_epoch_fwd, v, oxp, cxp,
+                                     pre_v, tot_v, T, N, C, W, T)
+    pre_p, tot = fwd["packed (package)"]()
+    equal("epoch_fwd and its plain version", (pre_p, tot),
+          EK.epoch_fwd_packed_plain(oxp, cxp, **kw))
+    fwd["plane (parent)"]()
+    equal("epoch_fwd on planes and packed", (pre_pl, tot_pl),
+          (unpk(pre_p), tot))
+    for v, name in VARIANTS_FWD.items():
+        pre_v.zero_()
+        call(lib.variant_epoch_fwd, v, oxp, cxp, pre_v, tot_v, T, N, C, W, T)
+        equal(f"epoch_fwd {name}", (pre_v, tot_v), (pre_p, tot))
+    out["epoch_fwd"] = in_turns(f"epoch_fwd T={T}, N={N}", fwd,
+                                work(costs, T * N, mul=1, sub=1),
+                                N + T + T * N + T * N // C)
+    itot = EK.batch_inv_planar(tot)
+    keys_pl = torch.empty((8, T * N), dtype=i32, device=device)
+    bwd = {
+        "plane (parent)": lambda: call(lib.plane_epoch_bwd, ox, oy, cx, cy,
+                                       pre_pl, itot, keys_pl, T, N, C, W,
+                                       20),
+        "packed (package)": lambda: EK.epoch_bwd_packed(
+            oxp, oyp, cxp, cyp, pre_p, itot, htsz=20, **kw),
+    }
+    keys = bwd["packed (package)"]()
+    equal("epoch_bwd and its plain version", (keys,),
+          (EK.epoch_bwd_packed_plain(oxp, oyp, cxp, cyp, pre_p, itot,
+                                     htsz=20, **kw),))
+    bwd["plane (parent)"]()
+    equal("epoch_bwd on planes and packed", (keys_pl,), (keys,))
+    out["epoch_bwd"] = in_turns(
+        f"epoch_bwd T={T}, N={N}", bwd,
+        work(costs, T * N, mul=4, sqr=2, add=1, sub=6),
+        2 * N + 2 * T + T * N + T * N // C, 32 * T * N)
+
+    def bwd_after_fwd(flush: bool, reps: int = 10) -> float:
+        buf = torch.ones(1 << 28, dtype=torch.uint8, device=device)
+        pairs = []
+        for _ in range(reps):
+            p_, t_ = EK.epoch_fwd_packed(oxp, cxp, **kw)
+            i_ = EK.batch_inv_planar(t_)
+            if flush:
+                buf.amax()
+            pairs.append(spun_launch(lambda: EK.epoch_bwd_packed(
+                oxp, oyp, cxp, cyp, p_, i_, htsz=20, **kw)))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+    reuse = {k: [] for k in ("after_fwd", "flushed")}
+    for flush in (False, True, True, False):
+        reuse["flushed" if flush else "after_fwd"].append(
+            bwd_after_fwd(flush))
+    out["epoch_bwd"]["pre_in_l2"] = reuse
+    log(f"packed study [epoch_bwd after the forward pass and the "
+        f"inversion]: {reuse['after_fwd']} ms against {reuse['flushed']} "
+        f"ms with the L2 flushed in between (pre is "
+        f"{pre_p.numel() * 4 / 1e6:.1f} MB packed)")
+
+    # the tile: add_const and the Montgomery points entry
+    for m in (1 << 18, 1 << 20):
+        xs, ys, inv = (random_planes(rng, 16, m, device) for _ in range(3))
+        ccx, ccy = (random_planes(rng, 16, 1, device) for _ in range(2))
+        xs[:, 1234] = ccx[:, 0]
+        add_p = [pk(v) for v in (xs, ys, inv, ccx, ccy)]
+        x3_pl, y3_pl = (torch.empty((16, m), dtype=i32, device=device)
+                        for _ in range(2))
+        pfx_pl = torch.empty((2, m), dtype=i32, device=device)
+        runs = {
+            "plane (parent)": lambda: call(lib.plane_add_const, xs, ys, inv,
+                                           ccx, ccy, x3_pl, y3_pl, pfx_pl, m),
+            "packed (package)": lambda: EK.add_const_packed(*add_p),
+        }
+        x3, y3, pfx = runs["packed (package)"]()
+        equal(f"add_const m={m} and its plain version", (x3, y3, pfx),
+              EK.add_const_packed_plain(*add_p))
+        runs["plane (parent)"]()
+        equal(f"add_const m={m} on planes and packed", (x3_pl, y3_pl, pfx_pl),
+              (unpk(x3), unpk(y3), pfx))
+        out[f"add_const m={m}"] = in_turns(
+            f"add_const m={m}", runs,
+            work(costs, m, mul=2, sqr=2, add=1, sub=5), 5 * m + 2, 8 * m)
+
+        xs, ys, cx_t, _ = tile_points(rng, m, device)
+        pts = (pk(xs), pk(ys), pk(cx_t))
+        Cm, Wm = EK.TILE_CHUNK_C, EK.tile_lanes(m, EK.TILE_CHUNK_C)
+        S = EK.mont_segments(Cm)
+        mkw = dict(chunk_c=Cm, lanes_w=Wm)
+        dbl = int((xs == cx_t).all(dim=0).sum())
+        mpre, mtot = EK.mont_fwd_points_packed(*pts, **mkw)
+        mitot = EK.fermat(mtot)
+        minv = EK.mont_bwd_points_packed(*pts, mpre, mitot, **mkw)
+        equal(f"mont points m={m} and their plain versions", (mpre, mtot, minv),
+              EK.mont_fwd_points_packed_plain(*pts, **mkw)
+              + (EK.mont_bwd_points_packed_plain(*pts, mpre, mitot, **mkw),))
+        mpre_pl = torch.empty((16, m), dtype=i32, device=device)
+        mtot_pl = torch.empty_like(mtot)
+        minv_pl = torch.empty((16, m), dtype=i32, device=device)
+        for backward in (False, True):
+            name = "mont_bwd" if backward else "mont_fwd"
+            plane = (
+                (lambda: call(lib.plane_mont_points, 1, xs, ys, cx_t, mpre_pl,
+                              mitot, minv_pl, None, m, Cm, Wm, S))
+                if backward else
+                (lambda: call(lib.plane_mont_points, 0, xs, ys, cx_t, None,
+                              None, mpre_pl, mtot_pl, m, Cm, Wm, S)))
+            packed = ((lambda: EK.mont_bwd_points_packed(*pts, mpre, mitot,
+                                                         **mkw))
+                      if backward else
+                      (lambda: EK.mont_fwd_points_packed(*pts, **mkw)))
+            plane()
+            if backward:
+                equal(f"{name} m={m} on planes and packed", (minv_pl,),
+                      (unpk(minv),))
+            else:
+                equal(f"{name} m={m} on planes and packed",
+                      (mpre_pl, mtot_pl), (unpk(mpre), mtot))
+            need, elems = mont_work(costs, m, Cm, backward, True, dbl)
+            out[f"{name} points m={m}"] = in_turns(
+                f"{name} points m={m}",
+                {"plane (parent)": plane, "packed (package)": packed},
+                need, elems)
+
+    lib_main = next(p for p in libs if p.name.startswith("libepoch_kernels"))
+    out["resources"] = kernel_resources(
+        [lib_main, side.path],
+        r"epoch_fwd_kernel|epoch_bwd_kernel|add_const_kernel|"
+        r"mont_[a-z]+_kernelILi2ELb1E|plane_|variant_")
+    log(f"packed study registers: {out['resources']}")
+    return out
+
+
 def phase_keys(solver, seed: int):
     """The + branch (bucket, disc) streams of one real epoch phase: the
     first T/phases centers of an epoch of a seeded pubkey."""
@@ -1737,10 +2451,9 @@ def phase_keys(solver, seed: int):
     per = cfg.jobs_per_epoch // solver._phases
     q0 = ecpy.mul((1 << 190) + seed)
     cx, cy, _ = solver._centers_on_device(q0, 0)
-    keys = EK.epoch_landing_keys(
-        cx[:per].T.contiguous(), cy[:per].T.contiguous(), solver.ox_pl,
-        solver.oy_pl, htsz=cfg.htsz, chunk_c=cfg.chunk_c,
-        lanes_w=cfg.lanes_w)
+    keys = EK.epoch_landing_keys_packed(
+        cx[:, :per], cy[:, :per], solver.ox_pk, solver.oy_pk, htsz=cfg.htsz,
+        chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w)
     return keys[0].clone(), keys[1].clone()
 
 
@@ -1975,7 +2688,7 @@ def sweep_probe(side, libs, device) -> dict:
     import torch
 
     from bsgs_tpu_torch.models import solver as S
-    from bsgs_tpu_torch.ops import _cuda, probe_kernel as PK
+    from bsgs_tpu_torch.ops import probe_kernel as PK
 
     cfg = S.SolverConfig(w=1 << 26)
     baby = S.build_table(cfg, device=device)
@@ -2040,17 +2753,9 @@ def sweep_probe(side, libs, device) -> dict:
                     for n, v in times.items())
         + f"; bound {bound_ms:.4f} ms by the {need / m:.1f} B a probe "
         f"needs, whole rows {bound_whole:.4f} ms")
-    exe = Path(_cuda._nvcc()).with_name("cuobjdump")
-    regs = {}
-    for path in [p for p in libs if p.name.startswith("libprobe_kernels")] + [
-            side.path]:
-        res = subprocess.run([str(exe), "-res-usage", str(path)],
-                             capture_output=True, text=True, timeout=300,
-                             check=True).stdout
-        for name, body in re.findall(
-                r"Function (\S*probe_rows_kernel\S*):\s*\n\s*([^\n]*)", res):
-            regs[name] = dict((k, int(v)) for k, v in re.findall(
-                r"(REG|STACK|LOCAL):(\d+)", body))
+    regs = kernel_resources(
+        [p for p in libs if p.name.startswith("libprobe_kernels")]
+        + [side.path], r"probe_rows_kernel")
     log(f"probe sweep registers: {regs}")
     return dict(m=m, bound_ms=bound_ms, bound_ms_whole_row=bound_whole,
                 bytes_per_probe=need / m, ms=dict(times),
@@ -2253,8 +2958,8 @@ def profile_build(w: int, device) -> dict:
     torch.profiler (device ms by kernel, PyTorch's own kernels included,
     and the device's busy share); and the same build once more with its
     parts timed one by one: the fill's host seed row (ec.host_row), the
-    whole first-tile fill (fill_multiples_planar), the tile advances
-    (add_const_planar, fill passes included) and the pack (_device_pack)
+    whole first-tile fill (fill_multiples_packed), the tile advances
+    (tile_advance_packed, fill passes included) and the pack (_device_pack)
     or the chunk scatters (_chunk_scatter)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2286,8 +2991,8 @@ def profile_build(w: int, device) -> dict:
                  if any(k in e.key for k in OWN_KERNEL_SYMBOLS)) / 1e3
 
     parts = {"seed row": (ec, "host_row"),
-             "fill": (EK, "fill_multiples_planar"),
-             "tile advance": (EK, "add_const_planar"),
+             "fill": (EK, "fill_multiples_packed"),
+             "tile advance": (EK, "tile_advance_packed"),
              "pack": (T, "_device_pack"),
              "chunk scatter": (T, "_chunk_scatter")}
     with timed_parts(parts) as took:
@@ -2319,9 +3024,9 @@ def profile_build(w: int, device) -> dict:
 
 
 def profile_tile_advance(tile: int, device, calls: int = 8) -> dict:
-    """One tile advance (add_const_planar on a filled tile, its output fed
-    back as the build does): the host's time to queue it, its wall time
-    with the device's, and the device launches it makes under
+    """One tile advance (tile_advance_packed on a filled tile, its output
+    fed back as the build does): the host's time to queue it, its wall
+    time with the device's, and the device launches it makes under
     torch.profiler, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -2329,16 +3034,15 @@ def profile_tile_advance(tile: int, device, calls: int = 8) -> dict:
     from bsgs_tpu_torch.ops import _cuda, epoch_kernel as EK, planar as PL
     from bsgs_tpu_torch.utils import ecpy
 
-    xs, ys = EK.fill_multiples_planar(ecpy.mul(1), ecpy.mul(1), tile,
+    xs, ys = EK.fill_multiples_packed(ecpy.mul(1), ecpy.mul(1), tile,
                                       device=device)
     step = ecpy.mul(tile)
-    cx = PL.const_col(step[0], device).to(torch.int32)
-    cy = PL.const_col(step[1], device).to(torch.int32)
-    xs, ys, _, _ = EK.add_const_planar(xs, ys, cx, cy)
+    cx, cy = (PL.packed_col(v, device) for v in step)
+    xs, ys, _, _ = EK.tile_advance_packed(xs, ys, cx, cy)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
-        xs, ys, _, _ = EK.add_const_planar(xs, ys, cx, cy)
+        xs, ys, _, _ = EK.tile_advance_packed(xs, ys, cx, cy)
     host = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2363,7 +3067,7 @@ def profile_tile_advance(tile: int, device, calls: int = 8) -> dict:
                     torch.cuda.synchronize()
                     time.sleep(0.005)
                     before = dict(_cuda.LAUNCHES)
-                xs, ys, _, _ = EK.add_const_planar(xs, ys, cx, cy)
+                xs, ys, _, _ = EK.tile_advance_packed(xs, ys, cx, cy)
                 if i == warmup + calls - 1:
                     torch.cuda.synchronize()
                     counted = {k: _cuda.LAUNCHES[k] - before[k]
@@ -3179,25 +3883,22 @@ def phase_streams(solver, seed: int):
     centers."""
     import torch
 
-    from bsgs_tpu_torch.models import table as T
-    from bsgs_tpu_torch.ops import epoch_kernel as EK, planar as PL
+    from bsgs_tpu_torch.models import giant
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
     from bsgs_tpu_torch.utils import ecpy
 
     cfg = solver.cfg
     per = cfg.jobs_per_epoch // solver._phases
     cx, cy, _ = solver._centers_on_device(ecpy.mul((1 << 190) + seed), 0)
-    keys = EK.epoch_landing_keys(
-        cx[:per].T.contiguous(), cy[:per].T.contiguous(), solver.ox_pl,
-        solver.oy_pl, htsz=cfg.htsz, chunk_c=cfg.chunk_c,
-        lanes_w=cfg.lanes_w)
+    keys = EK.epoch_landing_keys_packed(
+        cx[:, :per], cy[:, :per], solver.ox_pk, solver.oy_pk, htsz=cfg.htsz,
+        chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w)
     gen = torch.Generator(device=cx.device)
     gen.manual_seed(seed)
     plus = plant_members(keys[0].clone(), keys[1].clone(), solver.baby.rows,
                          gen)
-    hi, lo = PL.x_prefix64(cx.T.long())
-    bc, dc = T.bucket_disc(hi[0], lo[0], cfg.htsz)
     return [plus, (keys[2].clone(), keys[3].clone()),
-            (PL.u32_bits(bc), PL.u32_bits(dc))]
+            giant.center_keys(cx, cfg.htsz)]
 
 
 def partition_w30(single, n: int = 4) -> dict:
@@ -3726,7 +4427,8 @@ def main() -> int:
     # 1. build (with the side library of the field operations; with
     # epoch_bwd's study under --epoch-bwd, the probe's under --probe)
     side = SideLib(study=sys.argv[1:] == ["--epoch-bwd"],
-                   probe_study=sys.argv[1:] == ["--probe"])
+                   probe_study=sys.argv[1:] == ["--probe"],
+                   plane_study=sys.argv[1:] == ["--packed"])
     took, libs, costs = build_kernels(side)
     log(f"phase 1: kernels built in {took:.1f} s")
     torch.cuda.synchronize()
@@ -3738,12 +4440,17 @@ def main() -> int:
         print(json.dumps(sweep_probe(side, libs, device)))
         print(card)
         return 0
+    if side.plane_study:
+        print(json.dumps(sweep_packed(side, libs, costs, device)))
+        print(card)
+        return 0
     bwd = epoch_bwd_checks(libs, side, costs, device)
     if side.study:
         print(json.dumps(bwd))
         print(card)
         return 0
     resources = mont_resources(libs)
+    packed_res = packed_resources(libs)
 
     # 2. each epoch and table kernel against its plain version
     records = check_kernels(device, "w=2^26 shapes", htsz=20,
@@ -3752,6 +4459,8 @@ def main() -> int:
         device, (2048, 16384, 131072), costs)
     records.update(check_mont(device, 1 << 18, "w=2^26 shapes", costs))
     records["epoch_bwd"]["checks"] = bwd
+    for name in ("epoch_fwd", "add_const"):
+        records[name]["resources"] = packed_res[name]
     for name in ("mont_fwd", "mont_bwd"):
         records[name]["resources"] = {
             k: v for k, v in resources.items() if k.startswith(name)}
@@ -4050,14 +4759,14 @@ def main() -> int:
 
     # 9. the record
     main_stream, big_stream = probe[0], probe_big[0]
+    # the probe reads no limb planes: its bound_ms_planes is its floor
     records["probe_rows"] = dict(
         name="probe_rows", route="cuda",
         source="bsgs_tpu_torch/csrc/probe_kernels.cu",
         replaces=TPU_KERNEL["probe_rows"], launches=0, max_abs_err=0,
         ms=main_stream["ms"], plain_ms=main_stream["plain_ms"],
         bound_ms=main_stream["bound_ms"], bound_by="bytes",
-        library_ms=None, bound_ms_packed=main_stream["bound_ms"],
-        bound_by_packed="bytes",
+        library_ms=None, bound_ms_planes=main_stream["bound_ms"],
         bound_ms_whole_row=main_stream["bound_ms_whole_row"],
         ms_l2_cold=main_stream["ms_l2_cold"],
         ms_w30_table=big_stream["ms"],
@@ -4069,7 +4778,7 @@ def main() -> int:
     for name, rec in records_big.items():
         records[name]["w30_shapes"] = {
             k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "bound_ms_packed")}
+                                "bound_by", "bound_ms_planes")}
     for name in _cuda.KERNELS:
         records[name]["launches"] = sum(
             counts[name] for counts in path_launches.values())

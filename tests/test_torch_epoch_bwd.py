@@ -1,5 +1,5 @@
 """The epoch's backward pass (epoch_bwd): the port's plain version, which is
-EK.epoch_bwd's CPU path, against the JAX package's _bwd_kernel (reached
+EK.epoch_bwd_packed's CPU path, against the JAX package's _bwd_kernel (reached
 through bsgs_tpu.ops.epoch_kernel.epoch_landing_keys in interpret mode) and
 against the landing keys computed with Python's integers, bit for bit:
 chain layouts 8 x 1 and 1 x 1 among them, exact lanes (Ox == Mx), slopes
@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from bsgs_tpu.ops import epoch_kernel as JEK
 from bsgs_tpu_torch import convert
-from bsgs_tpu_torch.ops import epoch_kernel as EK, field as F
+from bsgs_tpu_torch.ops import epoch_kernel as EK, field as F, planar as PL
 
 torch.set_num_threads(2)
 
@@ -68,13 +68,15 @@ def _python_keys(ox, oy, cx, cy, htsz: int):
 
 
 def _port_keys(ox, oy, cx, cy, htsz: int, chunk_c: int, lanes_w: int):
-    """EK.epoch_bwd on CPU tensors (its plain version) after the port's
-    forward pass and inversion, as a uint32 array."""
-    t = [torch.from_numpy(p.view(np.int32)) for p in (ox, oy, cx, cy)]
-    pre, tot = EK.epoch_fwd(t[0], t[2], chunk_c=chunk_c, lanes_w=lanes_w)
+    """EK.epoch_bwd_packed on packed CPU tensors (its plain version) after
+    the port's forward pass and inversion, as a uint32 array."""
+    t = [PL.pack_planes(torch.from_numpy(p.view(np.int32)))
+         for p in (ox, oy, cx, cy)]
+    pre, tot = EK.epoch_fwd_packed(t[0], t[2], chunk_c=chunk_c,
+                                   lanes_w=lanes_w)
     itot = EK.batch_inv_planar(tot, chunk_c=chunk_c, lanes_w=lanes_w)
-    keys = EK.epoch_bwd(*t, pre, itot, htsz=htsz, chunk_c=chunk_c,
-                        lanes_w=lanes_w)
+    keys = EK.epoch_bwd_packed(*t, pre, itot, htsz=htsz, chunk_c=chunk_c,
+                               lanes_w=lanes_w)
     return convert.u32(keys)
 
 

@@ -1,7 +1,8 @@
 """The port's epoch kernels (plain versions, on the CPU) against bsgs_tpu's
 Pallas kernels in interpret mode, bit for bit: the batch inversion on both
 sides of the direct width, the add-const pass and the doubling fill, the
-epoch key plane (exact lanes included) and the fused epoch's hit array."""
+epoch key plane (exact lanes included) and the fused epoch's hit array
+(its centers and offsets packed, as the solver keeps them)."""
 
 import numpy as np
 import pytest
@@ -13,7 +14,7 @@ from bsgs_tpu.ops import epoch_kernel as JEK
 from bsgs_tpu.utils import ecpy
 from bsgs_tpu_torch import convert
 from bsgs_tpu_torch.models import giant as G
-from bsgs_tpu_torch.ops import epoch_kernel as EK, field as F
+from bsgs_tpu_torch.ops import epoch_kernel as EK, field as F, planar as PL
 
 from test_epoch_kernel import _setup
 from test_torch_probe_kernel import csr_rows
@@ -167,16 +168,18 @@ def test_run_epoch_fused_matches_jax(epoch_setup, phases):
         dense_j, hit_cap=64, interpret=True, **kw)
     j_idx, j_cnt = np.asarray(j_idx), int(j_cnt)
     assert j_cnt > 32  # the 32 planted pairs and the exact lane
-    centers = (_i32(np.asarray(cx)), _i32(np.asarray(cy)),
+    centers = (PL.pack_planes(_i32(np.asarray(cx)).T),
+               PL.pack_planes(_i32(np.asarray(cy)).T),
                torch.from_numpy(np.array(cinf)))
-    idx, cnt, gs = G.run_epoch_fused(*centers, ox_pl, oy_pl, rows,
+    offsets = (PL.pack_planes(ox_pl), PL.pack_planes(oy_pl))
+    idx, cnt, gs = G.run_epoch_fused(*centers, *offsets, rows,
                                      hit_cap=64, **kw)
     assert gs == j_gs and int(cnt) == j_cnt
     np.testing.assert_array_equal(convert.u32(idx), j_idx)
     # an overflowing buffer keeps the first hit_cap hits in ascending
     # order and the full count, as jnp.nonzero(size=hit_cap) does
     cap = j_cnt - 1
-    idx_o, cnt_o, _ = G.run_epoch_fused(*centers, ox_pl, oy_pl, rows,
+    idx_o, cnt_o, _ = G.run_epoch_fused(*centers, *offsets, rows,
                                         hit_cap=cap, **kw)
     assert int(cnt_o) == j_cnt
     np.testing.assert_array_equal(convert.u32(idx_o), j_idx[:cap])

@@ -1,8 +1,8 @@
 """The redesigned Montgomery passes on the CPU: the plain versions of the
 kernels' split of a chain into segments against the serial walks, bit for
-bit; the points entry (denominators formed from the tile's points, then
-one fold) against bsgs_tpu's add_const_planar in interpret mode; the tile
-stream of the new tree against the JAX package's; and the entries'
+bit; the points entry (denominators formed from the tile's packed points,
+then one fold) against bsgs_tpu's add_const_planar in interpret mode; the
+tile stream of the new tree against the JAX package's; and the entries'
 refusals. The kernels themselves run only on the card (chip_smoke.py)."""
 
 import numpy as np
@@ -14,7 +14,7 @@ from bsgs_tpu.models import table as JT
 from bsgs_tpu.ops import epoch_kernel as JEK
 from bsgs_tpu_torch import convert
 from bsgs_tpu_torch.models import table as T
-from bsgs_tpu_torch.ops import epoch_kernel as EK, field as F
+from bsgs_tpu_torch.ops import epoch_kernel as EK, field as F, planar as PL
 from bsgs_tpu_torch.utils import ecpy
 
 torch.set_num_threads(2)
@@ -100,19 +100,23 @@ def test_points_entry_advance_matches_jax(tile, chunk_c):
 
 @pytest.mark.parametrize("chunk_c,lanes_w", [(EK.TILE_CHUNK_C, 32), (12, 32)])
 def test_points_entry_is_the_fold_of_the_den_plane(tile, chunk_c, lanes_w):
-    """mont_fwd_points / mont_bwd_points equal the plane entries on the den
-    plane padded with ones: the same prefixes, totals and inverses."""
+    """mont_fwd_points_packed / mont_bwd_points_packed, unpacked, equal the
+    plane entries on the den plane padded with ones: the same prefixes,
+    totals and inverses."""
     xs, ys, cx, _, _ = tile
+    pk = (PL.pack_planes(xs), PL.pack_planes(ys), PL.pack_planes(cx))
     kw = dict(chunk_c=chunk_c, lanes_w=lanes_w)
     m = xs.shape[1]
     width = -(-m // (chunk_c * lanes_w)) * chunk_c * lanes_w
     den = EK.tile_den_plain(xs, ys, cx).to(torch.int32)
     padded = torch.cat([den, EK._ones(width - m, "cpu")], dim=1)
-    pre, tot = EK.mont_fwd_points(xs, ys, cx, **kw)
+    pre, tot = EK.mont_fwd_points_packed(*pk, **kw)
     wpre, wtot = EK.mont_fwd_plain(padded, **kw)
-    assert torch.equal(pre, wpre[:, :m]) and torch.equal(tot, wtot)
+    assert pre.shape == (PL.PACKED_ROWS, m)
+    assert torch.equal(PL.unpack_planes(pre), wpre[:, :m])
+    assert torch.equal(tot, wtot)
     itot = EK.fermat(tot)
-    inv = EK.mont_bwd_points(xs, ys, cx, pre, itot, **kw)
+    inv = PL.unpack_planes(EK.mont_bwd_points_packed(*pk, pre, itot, **kw))
     assert torch.equal(inv, EK.mont_bwd_plain(padded, wpre, itot,
                                               **kw)[:, :m])
     for lane in (0, 5, m - 1):
@@ -136,28 +140,29 @@ def test_prefix_tiles_match_jax():
 
 
 def test_points_entries_refuse_other_inputs(tile):
-    xs, ys, cx, _, _ = tile
+    planes = tile[:3]
+    xs, ys, cx = (PL.pack_planes(t) for t in planes)
     kw = dict(chunk_c=EK.TILE_CHUNK_C, lanes_w=32)
-    pre, tot = EK.mont_fwd_points(xs, ys, cx, **kw)
+    pre, tot = EK.mont_fwd_points_packed(xs, ys, cx, **kw)
     itot = EK.fermat(tot)
     bad = [
         (xs.long(), ys, cx),  # dtype
         (xs.to("meta"), ys.to("meta"), cx.to("meta")),  # device
         (xs, ys[:, :100], cx),  # ys shape
         (xs, ys, xs[:, :2]),  # not a column
-        (xs[:8], ys[:8], cx),  # not 16 limb rows
+        planes,  # 16 limb rows, not 8 packed ones
     ]
     for args in bad:
         with pytest.raises(ValueError):
-            EK.mont_fwd_points(*args, **kw)
+            EK.mont_fwd_points_packed(*args, **kw)
         with pytest.raises(ValueError):
-            EK.mont_bwd_points(*args, pre, itot, **kw)
+            EK.mont_bwd_points_packed(*args, pre, itot, **kw)
     with pytest.raises(ValueError):
-        EK.mont_bwd_points(xs, ys, cx, pre.long(), itot, **kw)
+        EK.mont_bwd_points_packed(xs, ys, cx, pre.long(), itot, **kw)
     with pytest.raises(ValueError):  # segments that do not divide the chain
-        EK.mont_fwd_points(xs, ys, cx, segments=5, **kw)
+        EK.mont_fwd_points_packed(xs, ys, cx, segments=5, **kw)
     with pytest.raises(ValueError):
-        EK.mont_fwd_points(xs, ys, cx, chunk_c=0, lanes_w=32)
+        EK.mont_fwd_points_packed(xs, ys, cx, chunk_c=0, lanes_w=32)
 
 
 def test_kernel_layouts():

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from bsgs_tpu.models import giant as JG, table as JT
 from bsgs_tpu_torch import convert
 from bsgs_tpu_torch.models import giant as G, solver as S
+from bsgs_tpu_torch.ops import planar as PL
 from bsgs_tpu_torch.utils import ecpy
 
 from test_torch_epoch_kernel import _i32, epoch_setup  # noqa: F401
@@ -28,7 +29,8 @@ KW = dict(chunk_c=2, lanes_w=128, hit_cap=64)
 def test_pipelined_steps_and_flush_match_jax(epoch_setup):  # noqa: F811
     """Three epochs of _setup's geometry (the same centers shifted one
     job each time): the priming step, a step that probes epoch 0's keys,
-    and the flush of epoch 1's, against bsgs_tpu's."""
+    and the flush of epoch 1's, against bsgs_tpu's. The port's step takes
+    the centers and offsets packed."""
     baby, ox, oy, cx, cy, cinf, ox_pl, oy_pl, dense_j, rows = epoch_setup
     htsz = baby.htsz
     epochs = [(cx, cy, cinf), (cx[1:], cy[1:], cinf[1:])]
@@ -43,8 +45,9 @@ def test_pipelined_steps_and_flush_match_jax(epoch_setup):  # noqa: F811
             jnp.swapaxes(oy, 0, 1), dense_j, htsz=htsz, interpret=True,
             **KW)
         got = G.pipelined_step(
-            *p_prev, e > 0, _i32(np.asarray(ecx)), _i32(np.asarray(ecy)),
-            ox_pl, oy_pl, rows, htsz=htsz, **KW)
+            *p_prev, e > 0, PL.pack_planes(_i32(np.asarray(ecx)).T),
+            PL.pack_planes(_i32(np.asarray(ecy)).T), PL.pack_planes(ox_pl),
+            PL.pack_planes(oy_pl), rows, htsz=htsz, **KW)
         for w, g in zip(want[:4], got[:4]):
             np.testing.assert_array_equal(convert.u32(g), np.asarray(w))
         assert int(got[4]) == int(want[4]) and int(got[4]) == (

@@ -194,7 +194,7 @@ def test_tuner_layout_at_the_two_paths():
         tuner.STREAMED_BUILD_BYTES_PER_BUCKET * (1 << 24))
     assert a.est_build_peak_bytes - a.est_table_bytes == \
         tuner.BUILD_BYTES_PER_KEY << 26
-    assert a.est_offsets_bytes == (1 << 18) * 128
+    assert a.est_offsets_bytes == (1 << 18) * 2 * (32 + 64)
     # twice the memory at least doubles w once the table binds
     assert tuner.tune(mem_bytes=32 << 30).w >= 2 * tuner.tune(
         mem_bytes=16 << 30).w
