@@ -14,15 +14,19 @@ keys while the next epoch's are computed, on a second CUDA stream
 
 The scan loop is pipelined: up to ``cfg.pipeline`` epochs are queued on
 the device before the oldest one's hit count is read back. Job centers are
-made on the host and copied from pinned memory without waiting; the
-``int(cnt)`` in ``_collect`` is the only point per epoch where the host
-waits for the device. ``solve(epoch_stride=, epoch_offset=)`` stripes the
-epochs over workers.
+made on the host and copied from pinned memory without waiting. Behind
+each epoch's last launch its hit count and hit buffer are copied into
+page-locked host memory and one event is recorded (``HitReadback``); the
+wait on that epoch's own event, in ``_collect``, is the only point per
+epoch where the host waits for the device, and the epochs queued after it
+keep the card busy meanwhile. On the CPU the record holds the count and
+buffer themselves, read as they are. ``solve(epoch_stride=,
+epoch_offset=)`` stripes the epochs over workers.
 
 With the recorder of ``utils/tracing`` on, the loop records its spans
 (solve, epoch, centers, stage, launch, collect, wait, verify and the
 checker's passes; build in build_table), their counts, and on a card the
-device bracket of each epoch, anchored at the ``int(cnt)`` wait.
+device bracket of each epoch, anchored at the event a wait waited on.
 
 Tables of w >= 2^28 are built streamed (table.build_baby_table_streamed;
 parallel/sharded_table.py splits one by bucket range over several cards).
@@ -254,8 +258,47 @@ def build_table(cfg: SolverConfig, device=None) -> tbl.BabyTable:
             device=dev)
 
 
+class HitReadback:
+    """An epoch's hit count and hit buffer on their way to the host.
+
+    On a card both are copied, on the current stream behind the epoch's
+    last launch, into one page-locked buffer [count, hits...] of PyTorch's
+    caching host allocator, and one event is recorded after the copies:
+    reading waits for that event alone, not for the epochs queued after
+    it. On the CPU the record holds the tensors themselves."""
+
+    __slots__ = ("cnt", "idxs", "event")
+
+    def __init__(self, idxs: torch.Tensor, cnt: torch.Tensor):
+        self.event = None
+        if idxs.device.type == "cuda":
+            host = torch.empty(idxs.shape[-1] + 1, dtype=torch.int32,
+                               pin_memory=True)
+            host[:1].copy_(cnt.reshape(1), non_blocking=True)
+            host[1:].copy_(idxs, non_blocking=True)
+            self.event = torch.cuda.Event(enable_timing=True)
+            self.event.record(torch.cuda.current_stream(idxs.device))
+            cnt, idxs = host[0], host[1:]
+        self.cnt, self.idxs = cnt, idxs
+
+    def ready(self) -> bool:
+        """Whether the copies have landed (no wait)."""
+        return self.event is None or self.event.query()
+
+    def read(self):
+        """(count, the hit buffer's int32 bits as numpy), once the copies
+        have landed (the one wait); raises HitOverflow when the count
+        exceeds the buffer."""
+        if self.event is not None:
+            self.event.synchronize()
+        cnt = int(self.cnt)
+        if cnt > self.idxs.shape[-1]:
+            raise HitOverflow(cnt)
+        return cnt, self.idxs.numpy()
+
+
 class Solver:
-    _queued = 0  # epochs in flight behind the one _collect reads
+    _behind = ()  # the records in flight behind the one _collect reads
 
     def __init__(self, cfg: SolverConfig,
                  baby: Optional[tbl.BabyTable] = None, device=None):
@@ -373,8 +416,7 @@ class Solver:
     # -- epoch dispatch ------------------------------------------------------
     def _epoch(self, q0, epoch: int, hit_cap: Optional[int] = None):
         """Queue one whole epoch on the device (fused or unfused); returns
-        a record (epoch, first_job, idxs, cnt, giant_steps) with idxs/cnt
-        still on the device."""
+        a record (epoch, first_job, HitReadback, giant_steps)."""
         cfg = self.cfg
         first_job = epoch * cfg.jobs_per_epoch
         cap = hit_cap or cfg.hit_cap
@@ -393,7 +435,8 @@ class Solver:
                     idxs, cnt, gs = giant.run_epoch(
                         cx, cy, cinf, self.ox, self.oy, self.baby.rows,
                         htsz=cfg.htsz, hit_cap=cap)
-        return epoch, first_job, idxs, cnt, gs
+            hits = HitReadback(idxs, cnt)
+        return epoch, first_job, hits, gs
 
     def _dispatch(self, q0, epoch: int):
         """Queue epoch ``epoch``. Pipelined, this queues its keys and the
@@ -416,10 +459,11 @@ class Solver:
                     cx, cy, self.ox_pk, self.oy_pk, self.baby.rows,
                     htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
                     hit_cap=cfg.hit_cap)
+            hits = HitReadback(idxs, cnt)
         self._prev = (first_job, keys, bc, dc, cinf)
         if prev is None:
-            return None, None, idxs, cnt, 0
-        return (prev[0] // cfg.jobs_per_epoch, prev[0], idxs, cnt,
+            return None, None, hits, 0
+        return (prev[0] // cfg.jobs_per_epoch, prev[0], hits,
                 (2 * cfg.n_offsets + 1) * cfg.jobs_per_epoch)
 
     def _flush(self):
@@ -436,7 +480,8 @@ class Solver:
             idxs, cnt = giant.probe_keys_flush(keys, bc, dc, cinf,
                                                self.baby.rows,
                                                hit_cap=cfg.hit_cap)
-        return (epoch, first_job, idxs, cnt,
+            hits = HitReadback(idxs, cnt)
+        return (epoch, first_job, hits,
                 (2 * cfg.n_offsets + 1) * cfg.jobs_per_epoch)
 
     def _redispatch(self, q0, epoch: int, cap: int):
@@ -447,19 +492,30 @@ class Solver:
     def _collect(self, pub, pk: int, rec):
         """Read one queued epoch's results back and DECODE any hits (no
         verification). Returns (hit records, giant_steps); raises
-        HitOverflow when the device buffer was too small."""
-        e, first_job, idxs, cnt, gs = rec
+        HitOverflow when the device buffer was too small.
+
+        Recorded as ``wait``: the wait on the epoch's own event, with the
+        epochs queued behind it (``queued``), whether its copies had landed
+        when the wait began (``ready``), and how many of the epochs behind
+        it were still running when it ended (``busy``)."""
+        e, first_job, hits, gs = rec
         with tracing.span("collect", e) as sp:
             with tracing.span("wait") as sw:
-                sw.count("queued", self._queued)
-                sw.anchor(idxs.device)
-                cnt = int(cnt)
-            if cnt > idxs.shape[-1]:
-                raise HitOverflow(cnt)
+                if sw:
+                    ready = hits.ready()
+                    sw.count("queued", len(self._behind))
+                    sw.count("ready", int(ready))
+                    if not ready:  # it completes within this wait
+                        sw.anchor(self.device, hits.event)
+                try:
+                    cnt, idxs = hits.read()
+                finally:
+                    if sw:
+                        sw.count("busy", sum(not r[2].ready()
+                                             for r in self._behind))
             batch = []
             if cnt:
-                batch = self._records(pub, pk, first_job,
-                                      idxs.cpu().numpy())
+                batch = self._records(pub, pk, first_job, idxs)
             sp.count("hits", len(batch))
         return batch, gs
 
@@ -519,8 +575,12 @@ class Solver:
         steps and steps_to_key (the steps up to the returned key's landing:
         the rest scanned past it)."""
         with tracing.span("solve") as sp:
-            res = self._scan(pub, pk, pke, progress, epoch_stride,
-                             epoch_offset, max_epochs, start_epoch, on_epoch)
+            try:
+                res = self._scan(pub, pk, pke, progress, epoch_stride,
+                                 epoch_offset, max_epochs, start_epoch,
+                                 on_epoch)
+            finally:
+                self._behind = ()
             if sp:
                 sp.count("epochs", res.epochs)
                 sp.count("steps", res.giant_steps)
@@ -561,6 +621,7 @@ class Solver:
         drained = 0
         depth = max(1, cfg.pipeline)
         inflight = collections.deque()
+        self._behind = inflight  # after popleft: the records behind rec
         self._prev = None  # pipelined state is per solve
 
         def may_dispatch():
@@ -584,7 +645,6 @@ class Solver:
                 inflight.append(self._flush())
             rec = inflight.popleft()
             e = rec[0]
-            self._queued = len(inflight)
             while True:
                 try:
                     batch, gs = self._collect(pub, pk, rec)

@@ -149,7 +149,7 @@ class MeshSolver(S.Solver):
         gathered = gathered.view(n, -1)
         with tracing.span("collect", e) as sp:
             with tracing.span("wait") as sw:
-                sw.count("queued", self._queued)
+                sw.count("queued", len(self._behind))
                 sw.anchor(gathered.device)
                 cnts = gathered[:, 0].cpu().numpy()
             cap = gathered.shape[1] - 1

@@ -17,16 +17,27 @@ are counted in ``dropped``).
 
 **The device clock.** On a CUDA device a span may bracket the device work
 it queues: ``begin_device`` records a timing event on the current stream,
-and the span's end records another. A span that waits for the device
-(``anchor``) records an event just before its wait; when the wait returns
-that event is complete, so the host time at the span's end places it on
-the host clock. Every bracket event is put on the host clock through the
-nearest such anchor, and only once ``query()`` says it is done: the
-recorder adds no synchronisation of its own. ``idle_gaps`` gives the
-device's gaps between consecutive brackets, each with the innermost host
-span at its midpoint. The gaps are idle where all the loop's device work
-lies inside brackets on one stream; idle time inside a bracket (the device
-catching up with the host within one epoch) is not seen.
+and the span's end records another. Bracket events are put on the host
+clock through an anchor, an event whose completion the host saw happen:
+
+- the event a span waited on (``anchor``): the caller's own event, which
+  the span's wait blocked on, or else one the recorder records just
+  before a wait that drains the stream; when the wait returns the event is
+  complete, so the host time at the span's end places it;
+- the event ``begin_device`` records first where the stream has nothing
+  queued (``Stream.query()``): it completes as it is recorded. Such an
+  anchor is taken at most every ``IDLE_ANCHOR_S`` after the last one,
+  since each one places the pending events.
+
+The first covers a card that runs ahead of the host, the second a host
+that runs ahead of the card. Every bracket event is placed through its
+device's latest anchor, and only once ``query()`` says both are done: the
+recorder adds no synchronisation of its own, and never records, pools or
+re-records an event it was given. ``idle_gaps`` gives the device's gaps
+between consecutive brackets, each with the innermost host span at its
+midpoint. The gaps are idle where all the loop's device work lies inside
+brackets on one stream; idle time inside a bracket (the device catching
+up with the host within one epoch) is not seen.
 
 ``dump(path)`` writes a chrome trace (Perfetto opens it), host spans and
 device brackets on the same clock; ``report()`` gives the table that the
@@ -43,6 +54,7 @@ import time
 from typing import Callable, Optional
 
 RING = 1 << 18
+IDLE_ANCHOR_S = 0.05  # the least host time between idle-stream anchors
 SOLVE = "solve"  # a span of this name starts a new solve id
 OUTSIDE = "(no span)"  # the label of a gap outside every host span
 
@@ -73,7 +85,7 @@ class _Null:
     def begin_device(self, device):
         pass
 
-    def anchor(self, device):
+    def anchor(self, device, event=None):
         pass
 
 
@@ -140,13 +152,17 @@ class Span:
         if self.device is None and getattr(device, "type", None) == "cuda":
             self.device = [None, None]
             self._bracket = device
+            self._owner._idle_anchor(device)
             self._owner._event(self, 0, device)
 
-    def anchor(self, device) -> None:
-        """Record the anchor event now, before the span's wait; the span's
-        end places it on the host clock."""
+    def anchor(self, device, event=None) -> None:
+        """Anchor the device clock at this span's end: on ``event``, the
+        caller's event that the span's wait blocks on, or else on an event
+        recorded now, before a wait that drains the current stream."""
         if getattr(device, "type", None) == "cuda":
-            self._anchor = self._owner._record(device)
+            self._anchor = (
+                (_index(device), event, False) if event is not None
+                else self._owner._record(device) + (True,))
 
     def _finish(self) -> None:
         if self._watch is not None:
@@ -169,9 +185,8 @@ class Recorder:
         self.dropped = 0
         self._stack = []
         self._ids = 0
-        self._seq = 0
-        self._pending = []  # (seq, device index, event, span, 0 or 1)
-        self._anchors = {}  # device index: (seq, event, host time)
+        self._pending = []  # (device index, event, span, 0 or 1)
+        self._anchors = {}  # device index: (event, host time, recorder's)
         self._pool = []
 
     # -- spans ---------------------------------------------------------
@@ -188,7 +203,7 @@ class Recorder:
             s._bracket = None
         s._finish()
         if s._anchor is not None:
-            self._take_anchor(s._anchor, s.t1)
+            self._take_anchor(*s._anchor, s.t1)
             s._anchor = None
         if self._stack and self._stack[-1] is s:  # not after a clear()
             self._stack.pop()
@@ -204,44 +219,50 @@ class Recorder:
 
     # -- device events -------------------------------------------------
     def _record(self, device):
+        """(device index, a pooled timing event recorded now on the
+        device's current stream)."""
         import torch
 
         ev = self._pool.pop() if self._pool else torch.cuda.Event(
             enable_timing=True)
         ev.record(torch.cuda.current_stream(device))
-        self._seq += 1
-        idx = device.index if device.index is not None else \
-            torch.cuda.current_device()
-        return self._seq, idx, ev
+        return _index(device), ev
 
     def _event(self, s: Span, which: int, device) -> None:
-        seq, idx, ev = self._record(device)
-        self._pending.append((seq, idx, ev, s, which))
+        self._pending.append(self._record(device) + (s, which))
 
-    def _take_anchor(self, anchor, t_host: float) -> None:
-        seq, idx, ev = anchor
+    def _idle_anchor(self, device) -> None:
+        """Anchor on an event recorded now where the device's current
+        stream has nothing queued (it completes as it is recorded), unless
+        the device's last anchor is under IDLE_ANCHOR_S old."""
+        import torch
+
+        last = self._anchors.get(_index(device))
+        if last is not None and time.perf_counter() - last[1] < IDLE_ANCHOR_S:
+            return
+        if torch.cuda.current_stream(device).query():
+            idx, ev = self._record(device)
+            self._take_anchor(idx, ev, True, time.perf_counter())
+
+    def _take_anchor(self, idx, ev, ours: bool, t_host: float) -> None:
         old = self._anchors.get(idx)
-        self._anchors[idx] = (seq, ev, t_host)
-        if old is not None:
-            self._pool.append(old[1])
+        self._anchors[idx] = (ev, t_host, ours)
+        if old is not None and old[2]:
+            self._pool.append(old[0])
         self._resolve()
 
     def _resolve(self) -> None:
         """Place every finished bracket event on the host clock through
-        its device's anchor: the first one after it where there is one,
-        else the last before it."""
+        its device's latest anchor, once that anchor is done too."""
         left = []
         for p in self._pending:
-            seq, idx, ev, s, which = p
+            idx, ev, s, which = p
             a = self._anchors.get(idx)
-            if a is None or not ev.query():
+            if a is None or not a[0].query() or not ev.query():
                 left.append(p)
                 continue
-            a_seq, a_ev, t_host = a
-            if seq < a_seq:
-                s.device[which] = t_host - ev.elapsed_time(a_ev) / 1e3
-            else:
-                s.device[which] = t_host + a_ev.elapsed_time(ev) / 1e3
+            a_ev, t_host, _ = a
+            s.device[which] = t_host + a_ev.elapsed_time(ev) / 1e3
             self._pool.append(ev)
         self._pending = left
 
@@ -343,6 +364,13 @@ class Recorder:
         if self.dropped:
             lines.append(f"({self.dropped} oldest records dropped)")
         return "\n".join(lines)
+
+
+def _index(device) -> int:
+    import torch
+
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
 
 
 def _merge(intervals) -> list:

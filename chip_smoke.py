@@ -2881,9 +2881,10 @@ def stream_overlap(prof) -> dict:
 def count_syncs(solver, pub, pk: int, epochs: int, label: str = "",
                 **solve_kw) -> int:
     """The host's waits for the device during a scan, by source line, from
-    PyTorch's sync debug mode: the solve loop means to wait once per epoch,
-    in Solver._collect's int(cnt), plus hit readback when an epoch hits and,
-    on a rescan table, the row pulls and matches of verification. Returns
+    PyTorch's sync debug mode, which does not flag the solve loop's wait on
+    each epoch's own event (Solver._collect): what it finds is, on a rescan
+    table, the row pulls and matches of verification, and MeshSolver's hit
+    gather. Returns
     the number of waits; solve_kw goes to solve (the callbacks)."""
     import torch
 
@@ -4284,10 +4285,10 @@ def unfused_vs_fused(solver, baby) -> dict:
     try:
         sets = {}
         for name, s in (("fused", solver), ("unfused", un)):
-            _, _, idxs, cnt, _ = s._epoch(q0, 0)
-            flat = giant.hit_indices(idxs.cpu().numpy())
-            if int(cnt) != len(flat):
-                raise AssertionError(f"{name}: {int(cnt)} hits, "
+            cnt, bits = s._epoch(q0, 0)[2].read()
+            flat = giant.hit_indices(bits)
+            if cnt != len(flat):
+                raise AssertionError(f"{name}: {cnt} hits, "
                                      f"{len(flat)} decoded")
             sets[name] = {giant.decode_flat_phased(
                 int(f), cfg.jobs_per_epoch, cfg.n_offsets, s._phases)

@@ -5,12 +5,15 @@ recorder off (no records, the same result), the ring, the chrome trace,
 idle gaps on synthetic brackets, and the command line's BSGS_TORCH_TRACE.
 A MeshSolver's spans are checked in tests/test_torch_distributed.py's
 sharded world of two. The ``chip`` case needs a card: no synchronising
-call added, every bracket of a finished solve placed on the host clock
+call added, every bracket of a finished solve placed on the host clock,
+and a collect that leaves the epochs queued behind it running
 (``python -m pytest tests/test_torch_tracing.py -m chip --noconftest``
 on the card). Imports torch and the port only."""
 
+import collections
 import json
 import os
+import time
 import warnings
 
 import pytest
@@ -120,6 +123,10 @@ def test_span_tree_of_a_rescan_solve(case, recorder):
     assert {r.counts["bytes"] for r in by["stage"]} == {
         (2 * 8 + 1) * cfg.jobs_per_epoch * 4}
     assert all(0 <= r.counts["queued"] < cfg.pipeline for r in by["wait"])
+    # on the CPU every epoch's hits are there when its wait begins, and
+    # none runs on behind it
+    assert all(r.counts["ready"] == 1 and r.counts["busy"] == 0
+               for r in by["wait"])
     # the rejected hints cost no residue scan; the matching one and the
     # key's own landing one each
     assert count("lookup", "lookups") >= 4
@@ -233,6 +240,81 @@ def test_idle_gaps_on_synthetic_brackets():
     assert "not known" in lone.report()
 
 
+class _FakeCard:
+    """A card for the recorder's clock on the CPU: an event is stamped
+    with the host clock plus OFFSET when recorded and is done at once; the
+    current stream has nothing queued while ``idle``."""
+
+    OFFSET = 1000.0
+
+    def __init__(self):
+        self.idle = True
+
+    def query(self):
+        return self.idle
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            self.t, self.records = None, 0
+
+        def record(self, stream=None):
+            self.t = time.perf_counter() + _FakeCard.OFFSET
+            self.records += 1
+
+        def query(self):
+            return self.t is not None
+
+        def elapsed_time(self, end):
+            return 1e3 * (end.t - self.t)
+
+
+def test_device_clock_anchors_on_the_waited_event_and_idle_streams(
+        monkeypatch):
+    card = _FakeCard()
+    monkeypatch.setattr(torch.cuda, "Event", _FakeCard.Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: card)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    dev = torch.device("cuda", 0)
+    rec = tracing.Recorder()
+    rec.on = True
+
+    def epoch(e):
+        with rec.open("epoch", e) as sp:
+            sp.begin_device(dev)
+
+    epoch(0)  # the stream is idle: an anchor
+    first = rec._anchors[0]
+    epoch(1)  # under IDLE_ANCHOR_S after it: none
+    assert rec._anchors[0] is first
+    mine = _FakeCard.Event()
+    mine.record()
+    with rec.open("wait") as sp:  # the wait on the caller's event
+        sp.anchor(dev, mine)
+    assert rec._anchors[0][0] is mine and not rec._anchors[0][2]
+    card.idle = False
+    time.sleep(tracing.IDLE_ANCHOR_S)
+    epoch(2)  # the stream is busy: no anchor
+    assert rec._anchors[0][0] is mine
+    with rec.open("wait") as sp:  # a draining wait: the recorder's event
+        sp.anchor(dev)
+    ours = rec._anchors[0][0]
+    assert ours is not mine and rec._anchors[0][2]
+    recorded = ours.records
+    # the caller's event is never pooled nor recorded again
+    assert mine not in rec._pool and mine.records == 1
+    card.idle = True
+    time.sleep(tracing.IDLE_ANCHOR_S)
+    epoch(3)  # idle again: the recorder's old anchor goes back to the
+    # pool, here to be recorded again at once as the bracket's start
+    assert rec._anchors[0][0] not in (mine, ours)
+    assert ours.records == recorded + 1 and mine.records == 1
+    brackets = [r for r in rec.records() if r.device is not None]
+    assert [r.epoch for r in brackets] == [0, 1, 2, 3]
+    for r in brackets:  # placed on the host clock, within the anchors' error
+        d0, d1 = r.device
+        assert r.t0 - 1e-3 <= d0 <= d1 <= r.t1 + 1e-3, (r.epoch, r.device)
+
+
 def test_dump_writes_a_chrome_trace(tmp_path):
     rec = _synthetic()
     rec._ring[1].count("T", 16)
@@ -300,8 +382,8 @@ def test_on_the_card_no_sync_added_and_brackets_resolve(cuda):
     pub = ecpy.mul(c["key"])
     q0 = ecpy.sub(pub, ecpy.mul(PK))
 
-    def one_epoch():
-        s._collect(pub, PK, s._epoch(q0, 0))
+    def one_epoch():  # epoch 3: no hit planted
+        s._collect(pub, PK, s._epoch(q0, 3))
 
     one_epoch()  # build and warm
     off = _syncs(one_epoch)
@@ -313,7 +395,9 @@ def test_on_the_card_no_sync_added_and_brackets_resolve(cuda):
         res = _solve(c)
     finally:
         tracing.disable()
-    assert on == off >= 1  # int(cnt) at least
+    # the wait on the epoch's own event is the one wait, and the sync
+    # debug mode does not flag an event's synchronize
+    assert on == off == 0
     assert res.key == c["key"]
     torch.cuda.synchronize()
     recs = tracing.records()
@@ -331,4 +415,47 @@ def test_on_the_card_no_sync_added_and_brackets_resolve(cuda):
     assert gaps and all(a < b for a, b, _ in gaps)
     assert {n for _, _, n in gaps} <= set(TREE) | {tracing.OUTSIDE}
     tracing.dump(os.devnull)
+    tracing.clear()
+
+
+SPIN_CYCLES = 1 << 28  # about 0.15 s of the H100's clock
+
+
+@pytest.mark.chip
+def test_on_the_card_collect_leaves_the_epochs_behind_it_running(cuda):
+    """Epochs 0-2 queued and a spin kernel before epoch 2: collecting
+    epoch 0 waits for its own event alone, so it returns while epoch 2's
+    is pending, and every bracket still resolves on the host clock."""
+    c = _case(cuda)
+    s = c["solver"]
+    pub = ecpy.mul(c["key"])
+    q0 = ecpy.sub(pub, ecpy.mul(PK))
+    s._collect(pub, PK, s._epoch(q0, 3))  # build and warm
+    torch.cuda.synchronize()
+    tracing.clear()
+    tracing.enable()
+    try:
+        recs = [s._epoch(q0, 0), s._epoch(q0, 1)]
+        torch.cuda._sleep(SPIN_CYCLES)
+        recs.append(s._epoch(q0, 2))
+        s._behind = collections.deque(recs[1:])
+        batch, _ = s._collect(pub, PK, recs[0])
+        returned = time.perf_counter()
+        pending = not recs[2][2].ready()
+        s._behind = ()
+        torch.cuda.synchronize()
+        spans = tracing.records()
+    finally:
+        tracing.disable()
+    assert pending and len(batch) >= 1  # epoch 0's planted hit
+    (wait,) = [r for r in spans if r.name == "wait"]
+    assert wait.counts["queued"] == 2 and wait.counts["busy"] >= 1
+    brackets = [r for r in spans if r.device is not None]
+    assert sorted(r.epoch for r in brackets) == [0, 1, 2]
+    for r in brackets:
+        d0, d1 = r.device
+        assert d0 is not None and d1 is not None, r.epoch
+        assert r.t0 - 1e-3 <= d0 <= d1, (r.epoch, r.t0, r.device)
+    (last,) = [r for r in brackets if r.epoch == 2]
+    assert last.device[1] > returned  # it ran on after the wait returned
     tracing.clear()
