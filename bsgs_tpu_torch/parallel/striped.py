@@ -25,8 +25,10 @@ of the same lengths, so the collectives stay matched, an overflow re-run
 included.
 
 The spans of the single card's loop (utils/tracing) are recorded under
-the same names, with the hit gather as ``gather`` inside ``epoch``; each
-rank keeps its own records.
+the same names, with the hit gather as ``gather`` inside ``epoch``
+(counts ``bytes``, gathered onto this rank, and ``ranks``) and
+``collect`` counting ``ranks_with_hits``; each rank keeps its own
+records.
 """
 
 from __future__ import annotations
@@ -136,7 +138,11 @@ class MeshSolver(S.Solver):
                         hit_cap=cap)
             with tracing.span("gather") as sp:
                 sp.begin_device(self.device)
-                gathered = self.mesh.all_gather(torch.cat((cnt, idxs)))
+                mine = torch.cat((cnt, idxs))
+                sp.count("bytes", self.mesh.world * mine.numel()
+                         * mine.element_size())
+                sp.count("ranks", self.mesh.world)
+                gathered = self.mesh.all_gather(mine)
         gs = (2 * cfg.n_offsets + 1) * self._jobs_per_super
         return epoch, first_job, gathered, gs
 
@@ -152,6 +158,7 @@ class MeshSolver(S.Solver):
                 sw.count("queued", len(self._behind))
                 sw.anchor(gathered.device)
                 cnts = gathered[:, 0].cpu().numpy()
+            sp.count("ranks_with_hits", int((cnts > 0).sum()))
             cap = gathered.shape[1] - 1
             if int(cnts.max()) > cap:
                 raise S.HitOverflow(int(cnts.max()))
