@@ -297,6 +297,61 @@ class HitReadback:
         return cnt, self.idxs.numpy()
 
 
+class EpochCenters:
+    """The job centers M_g = Q0 - (g*jobs_span + n_offsets)*S*G of a
+    config, g = first_job .. first_job + T - 1, exactly, for any T, and
+    with no scalar multiplication while a scan runs:
+
+    - the first center is carried: the last row's first center, if it has
+      the same Q0, plus delta*step (step = -jobs_span*S*G) for the delta
+      between the two first jobs, one affine addition. delta*step is one
+      of the row's multiples, or is made by one scalar multiplication the
+      first time the delta is seen and kept. A row of another Q0 takes the
+      scalar multiplication of M_g itself;
+    - the row is M + i*step from the multiples i*step (made once, longer
+      as longer rows ask) with one shared inversion
+      (ec.host_row_shared), or the serial ec.host_row where that does not
+      apply (a lane at infinity or a doubling).
+
+    After each row ``carried`` says whether its first center came by one
+    addition, and ``exact`` whether the row took ec.host_row."""
+
+    def __init__(self, cfg: SolverConfig):
+        self.cfg = cfg
+        self.step = ecpy.neg(ecpy.mul(cfg.jobs_span * cfg.stride))
+        self._multiples = [self.step]  # i*step for i = 1, 2, ...
+        self._jumps = {0: None}  # delta*step for the other deltas seen
+        self._last = None  # (Q0, first job, first center)
+        self.carried = self.exact = False
+
+    def _jump(self, delta: int):
+        """(delta*step, whether it was at hand)."""
+        if 0 < delta <= len(self._multiples):
+            return self._multiples[delta - 1], True
+        if delta in self._jumps:
+            return self._jumps[delta], True
+        pt = ecpy.mul(abs(delta), self.step)
+        self._jumps[delta] = pt if delta > 0 else ecpy.neg(pt)
+        return self._jumps[delta], False
+
+    def __call__(self, q0, first_job: int, n_jobs: int):
+        mults = self._multiples
+        while len(mults) < n_jobs:
+            mults.append(ecpy.add(mults[-1], self.step))
+        last = self._last
+        if last is not None and last[0] == q0:
+            jump, self.carried = self._jump(first_job - last[1])
+            m = ecpy.add(last[2], jump)
+        else:
+            cfg = self.cfg
+            c0 = (first_job * cfg.jobs_span + cfg.n_offsets) * cfg.stride
+            m, self.carried = ecpy.sub(q0, ecpy.mul(c0)), False
+        self._last = (q0, first_job, m)
+        row = ec.host_row_shared(m, mults[:n_jobs - 1])
+        self.exact = row is None
+        return ec.host_row(m, self.step, n_jobs) if self.exact else row
+
+
 class Solver:
     _behind = ()  # the records in flight behind the one _collect reads
 
@@ -335,8 +390,8 @@ class Solver:
         self.oy_pl = P.unpack_planes(self.oy_pk)
         if not self.fused:
             self.ox, self.oy = self.ox_pl.long().T, self.oy_pl.long().T
-        # Epoch center stepping: centers advance by -(2N+1)*S*G.
-        self.center_step = ecpy.neg(ecpy.mul(cfg.jobs_span * cfg.stride))
+        # Epoch centers: each job's center -(2N+1)*S*G from the last.
+        self._centers = EpochCenters(cfg)
         self._verify_offsets()
         self._prev = None  # pipelined: the last dispatched key bundle
 
@@ -360,13 +415,12 @@ class Solver:
     # -- center generation -------------------------------------------------
     def epoch_centers(self, q0, first_job: int, n_jobs: int):
         """Host arrays (x (T,16), y (T,16), inf (T,)) of job-center points
-        M_g = Q0 - c_g*S*G for g = first_job .. first_job + n_jobs - 1, one
-        exact host addition a center (ec.host_row), for any T; a center at
-        infinity has its lane marked, as bsgs_tpu's fill marks it."""
-        cfg = self.cfg
-        c0 = (first_job * cfg.jobs_span + cfg.n_offsets) * cfg.stride
-        return ec.host_row(ecpy.sub(q0, ecpy.mul(c0)), self.center_step,
-                           n_jobs)
+        M_g = Q0 - c_g*S*G for g = first_job .. first_job + n_jobs - 1,
+        exact, for any T (EpochCenters: the first center carried from the
+        last row, the row with one shared inversion); a center at infinity
+        has zero coordinates and its lane marked, as bsgs_tpu's fill marks
+        it."""
+        return self._centers(q0, first_job, n_jobs)
 
     def _centers_on_device(self, q0, first_job: int):
         """Epoch centers as device tensors (x, y, inf (T,) bool), copied in
@@ -374,17 +428,22 @@ class Solver:
         fused epoch x and y as packed (8, T) planes, packed on the host, so
         that the epoch adds no launch for them; for an unfused one as rows
         (T, 16). The copy starts the device bracket of the epoch span
-        open around it."""
+        open around it.
+
+        Recorded as ``centers`` (counts ``additions``, T; ``carried``, 1
+        where the first center came by one addition; ``exact_rows``, 1
+        where the row took the serial ec.host_row) and ``stage``."""
         n = self.cfg.jobs_per_epoch
         with tracing.span("centers") as sp:
             cx, cy, cinf = self.epoch_centers(q0, first_job, n)
             sp.count("additions", n)
+            sp.count("carried", int(self._centers.carried))
+            sp.count("exact_rows", int(self._centers.exact))
         with tracing.span("stage") as sp:
             inf = cinf.astype(np.int32)
-            if self.fused:  # word i = limb 2i | limb 2i+1 << 16 (uint32)
-                words = [(v[:, 0::2] | (v[:, 1::2] << 16)).T.view(np.int32)
-                         for v in (cx.astype(np.uint32),
-                                   cy.astype(np.uint32))]
+            if self.fused:  # word i: a coordinate's bytes 4i .. 4i+3
+                words = [v.astype("<u2").view("<u4").T.view(np.int32)
+                         for v in (cx, cy)]
                 host = torch.from_numpy(np.ascontiguousarray(
                     np.concatenate(words + [inf[None]])))
             else:

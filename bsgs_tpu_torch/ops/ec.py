@@ -10,7 +10,8 @@ API needs it.
   unique, so the tree's shape changes no bit of it.
 - ``add_common`` adds one common point to a batch with one shared
   inversion; ``fill_multiples`` builds [base + i*step] by doubling passes
-  of it from a host-exact seed row (``host_row``).
+  of it from a host-exact seed row (``host_row``); ``host_row_shared``
+  makes such a row from its multiples with one shared inversion.
 - ``point_dbl``, ``point_add_full`` and ``scalar_mul`` are the general,
   cold-path forms (verification and tests).
 """
@@ -187,6 +188,36 @@ def host_row(base_pt, step_pt, m: int):
             ys[i] = F.to_limbs(p[1])
         p = ecpy.add(p, step_pt)
     return xs, ys, inf
+
+
+def host_row_shared(base_pt, multiples):
+    """host_row's [base + i*step for i in range(m)] from the multiples
+    [i*step for i = 1..m-1], with one modular inversion for the row
+    (Montgomery's trick): the prefix products of the differences
+    x_i - x_base, one inverse of their product, then the inverse of each
+    difference walking back. Returns host_row's (x, y, inf), or None
+    where the trick does not apply: base at infinity, or a difference of
+    zero (base = +-i*step: a doubling, or a lane at infinity), which
+    host_row takes."""
+    if base_pt is None:
+        return None
+    p = ecpy.P
+    bx, by = base_pt
+    diffs = [(x - bx) % p for x, _ in multiples]
+    prods = [1]
+    for d in diffs:
+        prods.append(prods[-1] * d % p)
+    if not prods[-1]:
+        return None
+    inv = pow(prods[-1], -1, p)
+    xs, ys = [bx] * len(prods), [by] * len(prods)
+    for i in range(len(diffs) - 1, -1, -1):
+        lam = (multiples[i][1] - by) * inv * prods[i] % p  # / diffs[i]
+        inv = inv * diffs[i] % p
+        x = (lam * lam - bx - multiples[i][0]) % p
+        xs[i + 1], ys[i + 1] = x, (lam * (bx - x) - by) % p
+    return (F.to_limbs_batch(xs), F.to_limbs_batch(ys),
+            np.zeros((len(xs),), bool))
 
 
 def _limb_point(pt, device):

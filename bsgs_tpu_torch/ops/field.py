@@ -57,8 +57,14 @@ def from_limbs_batch(a) -> np.ndarray:
 
 
 def to_limbs_batch(xs, nlimbs: int = NLIMBS) -> np.ndarray:
-    """Iterable of host ints -> (len, nlimbs) uint32."""
-    return np.stack([to_limbs(int(x), nlimbs) for x in xs])
+    """Iterable of host ints -> (len, nlimbs) uint32, read as '<u2' from
+    each value's little-endian bytes."""
+    xs = [int(x) for x in xs]
+    for x in xs:
+        if not 0 <= x < (1 << (LIMB_BITS * nlimbs)):
+            raise ValueError(f"{x:#x} does not fit {nlimbs} limbs")
+    raw = b"".join(x.to_bytes(2 * nlimbs, "little") for x in xs)
+    return np.frombuffer(raw, "<u2").reshape(-1, nlimbs).astype(np.uint32)
 
 
 def broadcast_const(x: int, batch_shape=(), device=None) -> torch.Tensor:

@@ -79,7 +79,7 @@ class MeshSolver(S.Solver):
         self.fused = base.fused
         if not self.fused:
             self.ox, self.oy = base.ox, base.oy
-        self.center_step = base.center_step
+        self._centers = S.EpochCenters(self.cfg)
         self._pipelined = False
         self._prev = None
         self._phases = base._phases

@@ -4066,9 +4066,11 @@ def check_layouts(device) -> dict:
 
 def cost_of_128_jobs(solver, pk: int) -> dict:
     """What T=128 costs per epoch against T=16 on the main path's table:
-    the host's time for an epoch's centers (ec.host_row, one exact addition
-    a center) and 3-epoch scans of a pubkey with no key in range; then a
-    profile of T=128's epochs (device time by kernel, busy share)."""
+    the host's time for an epoch's centers, averaged over a new solver's
+    first 4 rows (the first multiplied, the next 3 carried by one addition;
+    each row with one shared inversion, models/solver.EpochCenters), and
+    3-epoch scans of a pubkey with no key in range; then a profile of
+    T=128's epochs (device time by kernel, busy share)."""
     import dataclasses
 
     import torch
@@ -4096,7 +4098,8 @@ def cost_of_128_jobs(solver, pk: int) -> dict:
                       rate=res.giant_steps / wall)
         if t == 128:
             out[t]["profile"] = profile_scan(s, pub, pk, epochs=3)
-        log(f"T={t}: centers {centers_ms:.2f} ms of host time per epoch; "
+        log(f"T={t}: centers {centers_ms:.2f} ms of host time per epoch "
+            f"(first 4 rows, 3 carried); "
             f"3-epoch scan {1e3 * wall / 3:.2f} ms per epoch, "
             f"{res.giant_steps / wall:.1f} giant-steps/s")
     return out

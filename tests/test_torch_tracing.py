@@ -1,8 +1,10 @@
 """The solve loop's recorder (bsgs_tpu_torch/utils/tracing.py): the span
 tree of a solve on a rescan table with planted false positives (counts
 against the SolveResult, the launch counter and the lookup's stats), the
-recorder off (no records, the same result), the ring, the chrome trace,
-idle gaps on synthetic brackets, and the command line's BSGS_TORCH_TRACE.
+centers' counts of a new solver (the first center carried after the first
+epoch), the recorder off (no records, the same result), the ring, the
+chrome trace, idle gaps on synthetic brackets, and the command line's
+BSGS_TORCH_TRACE.
 A MeshSolver's spans are checked in tests/test_torch_distributed.py's
 sharded world of two. The ``chip`` case needs a card: no synchronising
 call added, every bracket of a finished solve placed on the host clock,
@@ -147,6 +149,27 @@ def test_span_tree_of_a_rescan_solve(case, recorder):
     table = recorder.report()
     for name in TREE:
         assert f"\n{name} " in "\n" + table
+
+
+def test_centers_carry_the_first_center(case, recorder):
+    """A new solver multiplies the first center of its first epoch and
+    carries every later epoch's by one addition: ``centers`` counts
+    carried 0 then 1, exact_rows 0 and additions T, and the table prints
+    them."""
+    cfg = case["cfg"]
+    s = S.Solver(cfg, baby=case["solver"].baby, device="cpu")
+    res = s.solve(ecpy.mul(case["key"]), PK, case["pke"])
+    assert res.key == case["key"]
+    centers = [r for r in recorder.records() if r.name == "centers"]
+    assert len(centers) >= res.epochs >= 3
+    assert [r.epoch for r in centers] == list(range(len(centers)))
+    assert [r.counts["carried"] for r in centers] == [0] + [1] * (
+        len(centers) - 1)
+    assert {r.counts["exact_rows"] for r in centers} == {0}
+    assert {r.counts["additions"] for r in centers} == {cfg.jobs_per_epoch}
+    (row,) = [ln for ln in recorder.report().splitlines()
+              if ln.startswith("centers ")]
+    assert f"carried={len(centers) - 1}" in row and "exact_rows=0" in row
 
 
 def test_off_records_nothing_and_changes_nothing(case):
