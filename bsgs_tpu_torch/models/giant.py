@@ -6,18 +6,18 @@ landing x(M +- O_j), probes the table with their 64-bit prefixes and
 compacts the hits without making the host wait for the device. Three
 forms:
 
-- the fused epoch (``fused_epoch_probes``, ``run_epoch_fused``): the epoch
-  kernels (ops/epoch_kernel.epoch_landing_keys_packed) emit (bucket, disc)
-  keys, and the probe kernel (ops/probe_kernel.probe_rows) answers them:
+- the fused epoch (``fused_epoch_probes``): the epoch kernels
+  (ops/epoch_kernel.epoch_landing_keys_packed) emit (bucket, disc) keys,
+  and the probe kernel (ops/probe_kernel.probe_rows) answers them:
   nine probe launches per epoch at 4 phases, two landing streams per phase
   and the centers. It takes the centers and the offsets as packed planes
   (ops/planar.py: (8, T) and (8, N) int32 words), so a phase's centers
   are a column slice of the epoch's, copied nowhere. Its chain layout must
   divide N (solver.chain_layout);
-- the unfused epoch (``epoch_probes``, ``run_epoch``), for any N: the
-  row-major field/ec surface over (T*N, 16) limbs with one batch inversion
-  of every denominator (ec.batch_inv: the Montgomery and inversion
-  kernels), and one probe launch for the whole stream of 2TN + T keys;
+- the unfused epoch (``epoch_probes``), for any N: the row-major field/ec
+  surface over (T*N, 16) limbs with one batch inversion of every
+  denominator (ec.batch_inv: the Montgomery and inversion kernels), and
+  one probe launch for the whole stream of 2TN + T keys;
 - cross-epoch pipelining (``pipelined_step``, ``probe_keys_flush``): the
   fused epoch's keys of epoch e are probed while epoch e + 1's are
   computed, on a second CUDA stream.
@@ -102,7 +102,8 @@ def decode_flat_phased(flat: int, t_jobs: int, n: int, phases: int):
 
 def make_probe(rows, *, htsz: int):
     """The (hi, lo) prefix probe of a table held whole on this device
-    (table.probe of its ProbeRows: one probe kernel launch per stream)."""
+    (table.probe: one probe kernel launch per stream). rows: its ProbeRows,
+    or the BabyTable, whose planes are then read at each call."""
     return lambda hi, lo: T.probe(hi, lo, rows, htsz=htsz)
 
 
@@ -146,20 +147,11 @@ def epoch_probes(centers_x, centers_y, centers_inf, ox, oy, probe_fn, *,
          found[2 * tn:] | centers_inf], hit_cap)
 
 
-def run_epoch(centers_x, centers_y, centers_inf, ox, oy, rows, *,
-              htsz: int, hit_cap: int = 512):
-    """The single-device unfused epoch: epoch_probes' hits through
-    make_probe of the table's ProbeRows, the count as a 0-d tensor, and
-    giant_steps."""
-    idxs, cnt = epoch_probes(centers_x, centers_y, centers_inf, ox, oy,
-                             make_probe(rows, htsz=htsz), hit_cap=hit_cap)
-    return idxs, cnt[0], (2 * ox.shape[0] + 1) * centers_x.shape[0]
-
-
 def dense_probe(rows):
-    """The probe of a table held whole on this device (its ProbeRows):
-    (bucket, disc) int32 streams -> found, one probe kernel launch
-    (table.probe_keys)."""
+    """The probe of a table held whole on this device: (bucket, disc)
+    int32 streams -> found, one probe kernel launch (table.probe_keys).
+    rows: its ProbeRows, or the BabyTable, whose planes are then read at
+    each call."""
     return lambda bucket, disc: T.probe_keys(bucket, disc, rows)
 
 
@@ -203,19 +195,6 @@ def fused_epoch_probes(cx, cy, centers_inf, ox, oy, probe, *, htsz: int,
         parts += [found_p & ~exact, found_m & ~exact, exact]
     found_c = probe(*center_keys(cx, htsz))
     return _masks_to_hits(parts + [found_c | centers_inf], hit_cap)
-
-
-def run_epoch_fused(cx, cy, centers_inf, ox, oy, rows, *, htsz: int,
-                    chunk_c: int = EK.CHUNK_C, lanes_w: int = EK.LANES_W,
-                    hit_cap: int = 512, phases: int = 1):
-    """The single-device epoch: fused_epoch_probes' hits (packed centers
-    and offsets) through dense_probe of the table's ProbeRows, with the
-    count as a 0-d tensor, and giant_steps, the probed landings (2 per
-    offset and center pair plus each center)."""
-    idxs, cnt = fused_epoch_probes(
-        cx, cy, centers_inf, ox, oy, dense_probe(rows), htsz=htsz,
-        chunk_c=chunk_c, lanes_w=lanes_w, hit_cap=hit_cap, phases=phases)
-    return idxs, cnt[0], (2 * ox.shape[1] + 1) * cx.shape[1]
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,9 @@ Counterpart of ``bsgs_tpu/models/solver.py``: build the baby table and the
 giant offsets on the device, scan the key range in epochs, verify every
 hit exactly on the host, and report the private key.
 
-An epoch is fused (the epoch kernels, giant.run_epoch_fused) wherever the
-config's chain layout fits N, else unfused (the row-major field/ec
-surface, giant.run_epoch), which takes any N; ``SolverConfig.fused``
+An epoch is fused (the epoch kernels, giant.fused_epoch_probes) wherever
+the config's chain layout fits N, else unfused (the row-major field/ec
+surface, giant.epoch_probes), which takes any N; ``SolverConfig.fused``
 forces either. ``SolverConfig.cross_pipeline`` probes each fused epoch's
 keys while the next epoch's are computed, on a second CUDA stream
 (giant.pipelined_step).
@@ -20,8 +20,10 @@ page-locked host memory and one event is recorded (``HitReadback``); the
 wait on that epoch's own event, in ``_collect``, is the only point per
 epoch where the host waits for the device, and the epochs queued after it
 keep the card busy meanwhile. On the CPU the record holds the count and
-buffer themselves, read as they are. ``solve(epoch_stride=,
-epoch_offset=)`` stripes the epochs over workers.
+buffer themselves, read as they are. parallel/striped.MeshSolver runs this
+same epoch on each rank and reads every rank's hits, gathered onto its
+device, through the same record. ``solve(epoch_stride=, epoch_offset=)``
+stripes the epochs over workers.
 
 With the recorder of ``utils/tracing`` on, the loop records its spans
 (solve, epoch, centers, stage, launch, collect, wait, verify and the
@@ -259,42 +261,52 @@ def build_table(cfg: SolverConfig, device=None) -> tbl.BabyTable:
 
 
 class HitReadback:
-    """An epoch's hit count and hit buffer on their way to the host.
+    """Hit counts and hit buffers on their way to the host, as rows
+    [count, hits...]: one row for an epoch of one card, one a rank for a
+    mesh's gather (parallel/striped).
 
-    On a card both are copied, on the current stream behind the epoch's
-    last launch, into one page-locked buffer [count, hits...] of PyTorch's
-    caching host allocator, and one event is recorded after the copies:
-    reading waits for that event alone, not for the epochs queued after
-    it. On the CPU the record holds the tensors themselves."""
+    On a card the parts, laid side by side, are copied on the current
+    stream behind the epoch's last launch into one page-locked buffer of
+    PyTorch's caching host allocator, and one event is recorded after the
+    copies: reading waits for that event alone, not for the epochs queued
+    after it. On the CPU the record holds the rows themselves."""
 
-    __slots__ = ("cnt", "idxs", "event")
+    __slots__ = ("rows", "event")
 
-    def __init__(self, idxs: torch.Tensor, cnt: torch.Tensor):
+    def __init__(self, *parts: torch.Tensor):
+        """parts: the columns of the rows, each (rows, k) or, for one row,
+        (k,) or a scalar: an epoch's count and its hit buffer, or a
+        gather's (ranks, 1 + cap)."""
+        n = parts[-1].shape[0] if parts[-1].dim() == 2 else 1
+        parts = [p.reshape(n, -1) for p in parts]
         self.event = None
-        if idxs.device.type == "cuda":
-            host = torch.empty(idxs.shape[-1] + 1, dtype=torch.int32,
-                               pin_memory=True)
-            host[:1].copy_(cnt.reshape(1), non_blocking=True)
-            host[1:].copy_(idxs, non_blocking=True)
-            self.event = torch.cuda.Event(enable_timing=True)
-            self.event.record(torch.cuda.current_stream(idxs.device))
-            cnt, idxs = host[0], host[1:]
-        self.cnt, self.idxs = cnt, idxs
+        if parts[0].device.type != "cuda":
+            self.rows = torch.cat(parts, 1)
+            return
+        self.rows = torch.empty(n, sum(p.shape[1] for p in parts),
+                                dtype=torch.int32, pin_memory=True)
+        col = 0
+        for p in parts:
+            self.rows[:, col:col + p.shape[1]].copy_(p, non_blocking=True)
+            col += p.shape[1]
+        self.event = torch.cuda.Event(enable_timing=True)
+        self.event.record(torch.cuda.current_stream(parts[0].device))
 
     def ready(self) -> bool:
         """Whether the copies have landed (no wait)."""
         return self.event is None or self.event.query()
 
     def read(self):
-        """(count, the hit buffer's int32 bits as numpy), once the copies
-        have landed (the one wait); raises HitOverflow when the count
-        exceeds the buffer."""
+        """(the rows' counts (rows,), their hit buffers' int32 bits
+        (rows, cap)) as numpy, once the copies have landed (the one wait);
+        raises HitOverflow when any row's count exceeds its buffer."""
         if self.event is not None:
             self.event.synchronize()
-        cnt = int(self.cnt)
-        if cnt > self.idxs.shape[-1]:
-            raise HitOverflow(cnt)
-        return cnt, self.idxs.numpy()
+        rows = self.rows.numpy()
+        cnts, bufs = rows[:, 0], rows[:, 1:]
+        if cnts.max() > bufs.shape[1]:
+            raise HitOverflow(int(cnts.max()))
+        return cnts, bufs
 
 
 class EpochCenters:
@@ -390,6 +402,11 @@ class Solver:
         self.oy_pl = P.unpack_planes(self.oy_pk)
         if not self.fused:
             self.ox, self.oy = self.ox_pl.long().T, self.oy_pl.long().T
+        # The fused epoch probes (bucket, disc) keys, the unfused one (hi,
+        # lo) prefixes. Each is given the table itself, whose planes it
+        # reads at every call.
+        self._probe = (giant.dense_probe(self.baby) if self.fused
+                       else giant.make_probe(self.baby, htsz=cfg.htsz))
         # Epoch centers: each job's center -(2N+1)*S*G from the last.
         self._centers = EpochCenters(cfg)
         self._verify_offsets()
@@ -466,6 +483,12 @@ class Solver:
         """Jobs of one epoch of the loop (parallel/striped: of all ranks)."""
         return self.cfg.jobs_per_epoch
 
+    @property
+    def _jobs_before(self) -> int:
+        """Jobs of an epoch of the loop that come before this worker's own
+        (parallel/striped: those of the lower ranks)."""
+        return 0
+
     def _total_epochs(self, pk: int, pke: int) -> int:
         cfg = self.cfg
         m_max = (pke - pk) // cfg.stride + 1
@@ -473,29 +496,52 @@ class Solver:
         return -(-total_jobs // self._jobs_per_super)
 
     # -- epoch dispatch ------------------------------------------------------
+    def _queue(self, epoch: int, run, q0=None, streams: int = 1):
+        """The steps of every epoch the loop queues: the span ``epoch``
+        (counting ``T`` where it stages centers, and ``streams`` where its
+        work runs on more than one); this worker's centers of epoch
+        ``epoch``, staged (none without q0, when the device bracket starts
+        here); the span ``launch`` around ``run(*centers)``, which returns
+        (hit buffer, count); and the record's read-back of them
+        (_readback)."""
+        with tracing.span("epoch", epoch) as sp:
+            if streams > 1:
+                sp.count("streams", streams)
+            if q0 is None:
+                sp.begin_device(self.device)
+                centers = ()
+            else:
+                sp.count("T", self.cfg.jobs_per_epoch)
+                centers = self._centers_on_device(
+                    q0, epoch * self._jobs_per_super + self._jobs_before)
+            with tracing.span("launch") as sl:
+                sl.delta("launches", _cuda.total_launches)
+                idxs, cnt = run(*centers)
+            return self._readback(idxs, cnt)
+
+    def _readback(self, idxs, cnt) -> HitReadback:
+        """The read-back of an epoch's hit buffer and count
+        (parallel/striped: of every rank's, gathered)."""
+        return HitReadback(cnt, idxs)
+
     def _epoch(self, q0, epoch: int, hit_cap: Optional[int] = None):
         """Queue one whole epoch on the device (fused or unfused); returns
         a record (epoch, first_job, HitReadback, giant_steps)."""
         cfg = self.cfg
-        first_job = epoch * cfg.jobs_per_epoch
         cap = hit_cap or cfg.hit_cap
-        with tracing.span("epoch", epoch) as sp:
-            sp.count("T", cfg.jobs_per_epoch)
-            cx, cy, cinf = self._centers_on_device(q0, first_job)
-            with tracing.span("launch") as sp:
-                sp.delta("launches", _cuda.total_launches)
-                if self.fused:
-                    idxs, cnt, gs = giant.run_epoch_fused(
-                        cx, cy, cinf, self.ox_pk, self.oy_pk,
-                        self.baby.rows, htsz=cfg.htsz, chunk_c=cfg.chunk_c,
-                        lanes_w=cfg.lanes_w, hit_cap=cap,
-                        phases=self._phases)
-                else:
-                    idxs, cnt, gs = giant.run_epoch(
-                        cx, cy, cinf, self.ox, self.oy, self.baby.rows,
-                        htsz=cfg.htsz, hit_cap=cap)
-            hits = HitReadback(idxs, cnt)
-        return epoch, first_job, hits, gs
+
+        def run(cx, cy, cinf):
+            if self.fused:
+                return giant.fused_epoch_probes(
+                    cx, cy, cinf, self.ox_pk, self.oy_pk, self._probe,
+                    htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
+                    hit_cap=cap, phases=self._phases)
+            return giant.epoch_probes(cx, cy, cinf, self.ox, self.oy,
+                                      self._probe, hit_cap=cap)
+
+        hits = self._queue(epoch, run, q0)
+        return (epoch, epoch * self._jobs_per_super, hits,
+                cfg.jobs_span * self._jobs_per_super)
 
     def _dispatch(self, q0, epoch: int):
         """Queue epoch ``epoch``. Pipelined, this queues its keys and the
@@ -507,23 +553,22 @@ class Solver:
         cfg = self.cfg
         first_job = epoch * cfg.jobs_per_epoch
         prev = self._prev
-        with tracing.span("epoch", epoch) as sp:
-            sp.count("T", cfg.jobs_per_epoch)
-            sp.count("streams", 2)  # the last epoch's probe: a second one
-            cx, cy, cinf = self._centers_on_device(q0, first_job)
-            with tracing.span("launch") as sp:
-                sp.delta("launches", _cuda.total_launches)
-                keys, bc, dc, idxs, cnt = giant.pipelined_step(
-                    *(prev[1:] if prev else (None,) * 4), prev is not None,
-                    cx, cy, self.ox_pk, self.oy_pk, self.baby.rows,
-                    htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
-                    hit_cap=cfg.hit_cap)
-            hits = HitReadback(idxs, cnt)
-        self._prev = (first_job, keys, bc, dc, cinf)
+
+        def run(cx, cy, cinf):
+            keys, bc, dc, idxs, cnt = giant.pipelined_step(
+                *(prev[1:] if prev else (None,) * 4), prev is not None,
+                cx, cy, self.ox_pk, self.oy_pk, self.baby.rows,
+                htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
+                hit_cap=cfg.hit_cap)
+            self._prev = (first_job, keys, bc, dc, cinf)
+            return idxs, cnt
+
+        # the last epoch's probe runs on a second stream
+        hits = self._queue(epoch, run, q0, streams=2)
         if prev is None:
             return None, None, hits, 0
         return (prev[0] // cfg.jobs_per_epoch, prev[0], hits,
-                (2 * cfg.n_offsets + 1) * cfg.jobs_per_epoch)
+                cfg.jobs_span * cfg.jobs_per_epoch)
 
     def _flush(self):
         """Probe the last key bundle of a pipelined scan."""
@@ -531,17 +576,10 @@ class Solver:
         first_job, keys, bc, dc, cinf = self._prev
         self._prev = None
         epoch = first_job // cfg.jobs_per_epoch
-        with tracing.span("epoch", epoch) as sp, \
-                tracing.span("launch") as sl:
-            sp.begin_device(self.device)
-            sp.count("streams", 2)
-            sl.delta("launches", _cuda.total_launches)
-            idxs, cnt = giant.probe_keys_flush(keys, bc, dc, cinf,
-                                               self.baby.rows,
-                                               hit_cap=cfg.hit_cap)
-            hits = HitReadback(idxs, cnt)
-        return (epoch, first_job, hits,
-                (2 * cfg.n_offsets + 1) * cfg.jobs_per_epoch)
+        hits = self._queue(epoch, lambda: giant.probe_keys_flush(
+            keys, bc, dc, cinf, self.baby.rows, hit_cap=cfg.hit_cap),
+            streams=2)
+        return epoch, first_job, hits, cfg.jobs_span * cfg.jobs_per_epoch
 
     def _redispatch(self, q0, epoch: int, cap: int):
         """Overflow recovery: re-run one epoch with a larger hit buffer,
@@ -550,13 +588,16 @@ class Solver:
 
     def _collect(self, pub, pk: int, rec):
         """Read one queued epoch's results back and DECODE any hits (no
-        verification). Returns (hit records, giant_steps); raises
-        HitOverflow when the device buffer was too small.
+        verification), row c's jobs starting at first_job + c*T (one row on
+        a card, one a rank on a mesh). Returns (hit records, giant_steps);
+        raises HitOverflow when a device buffer was too small (on a mesh
+        on every rank, which all read the same counts).
 
-        Recorded as ``wait``: the wait on the epoch's own event, with the
-        epochs queued behind it (``queued``), whether its copies had landed
-        when the wait began (``ready``), and how many of the epochs behind
-        it were still running when it ended (``busy``)."""
+        Recorded as ``collect`` (counts ``hits`` and ``ranks_with_hits``,
+        the rows with any) and ``wait``: the wait on the epoch's own
+        event, with the epochs queued behind it (``queued``), whether its
+        copies had landed when the wait began (``ready``), and how many of
+        the epochs behind it were still running when it ended (``busy``)."""
         e, first_job, hits, gs = rec
         with tracing.span("collect", e) as sp:
             with tracing.span("wait") as sw:
@@ -567,14 +608,18 @@ class Solver:
                     if not ready:  # it completes within this wait
                         sw.anchor(self.device, hits.event)
                 try:
-                    cnt, idxs = hits.read()
+                    cnts, bufs = hits.read()
                 finally:
                     if sw:
                         sw.count("busy", sum(not r[2].ready()
                                              for r in self._behind))
+            sp.count("ranks_with_hits", int(np.count_nonzero(cnts)))
             batch = []
-            if cnt:
-                batch = self._records(pub, pk, first_job, idxs)
+            for c in range(len(cnts)):
+                if cnts[c]:
+                    batch += self._records(
+                        pub, pk, first_job + c * self.cfg.jobs_per_epoch,
+                        bufs[c])
             sp.count("hits", len(batch))
         return batch, gs
 

@@ -21,8 +21,7 @@ and the span's end records another. Bracket events are put on the host
 clock through an anchor, an event whose completion the host saw happen:
 
 - the event a span waited on (``anchor``): the caller's own event, which
-  the span's wait blocked on, or else one the recorder records just
-  before a wait that drains the stream; when the wait returns the event is
+  the span's wait blocked on; when the wait returns the event is
   complete, so the host time at the span's end places it;
 - the event ``begin_device`` records first where the stream has nothing
   queued (``Stream.query()``): it completes as it is recorded. Such an
@@ -85,7 +84,7 @@ class _Null:
     def begin_device(self, device):
         pass
 
-    def anchor(self, device, event=None):
+    def anchor(self, device, event):
         pass
 
 
@@ -155,14 +154,11 @@ class Span:
             self._owner._idle_anchor(device)
             self._owner._event(self, 0, device)
 
-    def anchor(self, device, event=None) -> None:
-        """Anchor the device clock at this span's end: on ``event``, the
-        caller's event that the span's wait blocks on, or else on an event
-        recorded now, before a wait that drains the current stream."""
+    def anchor(self, device, event) -> None:
+        """Anchor the device clock at this span's end on ``event``, the
+        caller's event that the span's wait blocks on."""
         if getattr(device, "type", None) == "cuda":
-            self._anchor = (
-                (_index(device), event, False) if event is not None
-                else self._owner._record(device) + (True,))
+            self._anchor = (_index(device), event, False)
 
     def _finish(self) -> None:
         if self._watch is not None:

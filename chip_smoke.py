@@ -2882,10 +2882,10 @@ def count_syncs(solver, pub, pk: int, epochs: int, label: str = "",
                 **solve_kw) -> int:
     """The host's waits for the device during a scan, by source line, from
     PyTorch's sync debug mode, which does not flag the solve loop's wait on
-    each epoch's own event (Solver._collect): what it finds is, on a rescan
-    table, the row pulls and matches of verification, and MeshSolver's hit
-    gather. Returns
-    the number of waits; solve_kw goes to solve (the callbacks)."""
+    each epoch's own event (Solver._collect, a MeshSolver's gathered hits
+    included): what it finds is, on a rescan table, the row pulls and
+    matches of verification. Returns the number of waits; solve_kw goes to
+    solve (the callbacks)."""
     import torch
 
     cfg = solver.cfg
@@ -4288,7 +4288,8 @@ def unfused_vs_fused(solver, baby) -> dict:
     try:
         sets = {}
         for name, s in (("fused", solver), ("unfused", un)):
-            cnt, bits = s._epoch(q0, 0)[2].read()
+            cnts, bufs = s._epoch(q0, 0)[2].read()
+            cnt, bits = int(cnts[0]), bufs[0]
             flat = giant.hit_indices(bits)
             if cnt != len(flat):
                 raise AssertionError(f"{name}: {cnt} hits, "

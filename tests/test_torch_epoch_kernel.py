@@ -172,15 +172,17 @@ def test_run_epoch_fused_matches_jax(epoch_setup, phases):
                PL.pack_planes(_i32(np.asarray(cy)).T),
                torch.from_numpy(np.array(cinf)))
     offsets = (PL.pack_planes(ox_pl), PL.pack_planes(oy_pl))
-    idx, cnt, gs = G.run_epoch_fused(*centers, *offsets, rows,
-                                     hit_cap=64, **kw)
-    assert gs == j_gs and int(cnt) == j_cnt
+    idx, cnt = G.fused_epoch_probes(*centers, *offsets, G.dense_probe(rows),
+                                    hit_cap=64, **kw)
+    assert j_gs == (2 * ox.shape[0] + 1) * cx.shape[0]  # jobs_span * T
+    assert int(cnt) == j_cnt
     np.testing.assert_array_equal(convert.u32(idx), j_idx)
     # an overflowing buffer keeps the first hit_cap hits in ascending
     # order and the full count, as jnp.nonzero(size=hit_cap) does
     cap = j_cnt - 1
-    idx_o, cnt_o, _ = G.run_epoch_fused(*centers, *offsets, rows,
-                                        hit_cap=cap, **kw)
+    idx_o, cnt_o = G.fused_epoch_probes(*centers, *offsets,
+                                        G.dense_probe(rows), hit_cap=cap,
+                                        **kw)
     assert int(cnt_o) == j_cnt
     np.testing.assert_array_equal(convert.u32(idx_o), j_idx[:cap])
 

@@ -351,6 +351,25 @@ def test_mesh_solver_of_one_rank_is_the_single_card_solve(one_rank, solvers):
         striped.MeshSolver(base, one_rank)
 
 
+def test_mesh_solver_takes_its_base_state_whole(one_rank, solvers):
+    """A MeshSolver holds its base solver's table and offset planes as the
+    same tensors (no second fill, no copy) and the base's probe over a
+    table held whole, but EpochCenters of its own, so that no center is
+    carried from one to the other; its own state leaves the base as it
+    was."""
+    port, _ = solvers
+    probe = port._probe
+    for kw in ({}, dict(shard_baby_table=True)):
+        ms = striped.MeshSolver(port, one_rank, **kw)
+        assert ms.cfg is port.cfg and ms.baby is port.baby
+        for name in ("ox_pk", "oy_pk", "ox_pl", "oy_pl"):
+            assert getattr(ms, name) is getattr(port, name), name
+        assert (ms._probe is probe) == (not kw)
+        assert isinstance(ms._centers, S.EpochCenters)
+        assert ms._centers is not port._centers
+        assert port._probe is probe and not hasattr(port, "mesh")
+
+
 def test_unfused_mesh_solver_of_one_rank(one_rank, port_table):
     """MeshSolver over an unfused base solver, its table replicated and
     split into one shard (make_sharded_probe, the (hi, lo) all_gather

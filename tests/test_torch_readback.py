@@ -1,6 +1,8 @@
 """How the solve loop reads an epoch's hits back (solver.HitReadback): on
-the CPU the record reads the count and hit buffer as the draining read
-does (``int(cnt)``, ``idxs.cpu()``), overflow included; and the depth of
+the CPU the record reads the count and hit buffer, of one card's epoch or
+of each rank's row of a mesh's gather, as the draining read does
+(``int(cnt)``, ``idxs.cpu()``), overflow included, and the collect
+decodes each row with its own job base; and the depth of
 the pipeline changes no result of a solve, fused, unfused or
 cross-pipelined, on a plain table and on a rescan table with false
 positives planted. The ``chip`` cases read the same buffers on the card,
@@ -10,6 +12,7 @@ chip --noconftest`` on the card); tests/test_torch_tracing.py's hold the
 solve loop's wait there. Imports torch and the port only."""
 
 import dataclasses
+import types
 import warnings
 
 import numpy as np
@@ -61,41 +64,76 @@ def _syncs(fn):
     return out, sum("called a synchronizing" in str(w.message) for w in got)
 
 
+def _read_rows(rb):
+    try:
+        cnts, bufs = rb.read()
+    except S.HitOverflow as ov:
+        return "overflow", ov.count
+    return [(int(n), G.hit_indices(b).tolist()) for n, b in zip(cnts, bufs)]
+
+
 @pytest.mark.parametrize("device", [
     "cpu", pytest.param("cuda", marks=pytest.mark.chip)])
+@pytest.mark.parametrize("rows", [1, 4])
 @pytest.mark.parametrize("hits", [0, 5, CAP + 3],
                          ids=["empty", "some", "overflow"])
-def test_readback_reads_as_the_draining_read(hits, device):
-    """On the card the count and hits come through pinned memory behind
-    the record's own event, copied while a spin kernel queued before the
-    compaction still runs; read() waits for that event alone."""
+def test_readback_reads_as_the_draining_read(hits, rows, device):
+    """One row is an epoch's count and hit buffer; several are a mesh's
+    gather, [count, hits...] a rank, whose last row here holds ``hits``
+    and the others a few each. Each row reads as the draining read of its
+    own buffer, one row over the cap raises HitOverflow, and _collect
+    decodes row c with job base first_job + c*T. On the card the rows
+    come through pinned memory behind the record's own event, copied
+    while a spin kernel queued before the compaction still runs; read()
+    waits for that event alone."""
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("no CUDA card: run on the chip")
-    mask = torch.zeros(1000, dtype=torch.bool)
-    mask[torch.randperm(1000, generator=torch.Generator().manual_seed(hits))
-         [:hits]] = True
-    on = mask.to(device)
+    masks = []
+    for r in range(rows):
+        mask = torch.zeros(1000, dtype=torch.bool)
+        gen = torch.Generator().manual_seed(hits + 100 * r)
+        n = hits if r == rows - 1 else r + 1
+        mask[torch.randperm(1000, generator=gen)[:n]] = True
+        masks.append(mask)
+
+    def readback(on):
+        parts = [G._masks_to_hits([m], CAP) for m in on]
+        if rows == 1:
+            return parts, S.HitReadback(parts[0][1], parts[0][0])
+        return parts, S.HitReadback(
+            torch.stack([torch.cat((c, i)) for i, c in parts]))
+
+    on = [m.to(device) for m in masks]
     if device == "cuda":  # load the kernels and pin a host block first:
         # loading either may wait for the whole card
-        S.HitReadback(*G._masks_to_hits([torch.zeros_like(on)], CAP)).read()
+        readback([torch.zeros_like(m) for m in on])[1].read()
         torch.cuda._sleep(SPIN_CYCLES)
-    idxs, cnt = G._masks_to_hits([on], CAP)
-    cnt = cnt[0]  # the epochs' count: a 0-d view
-    rb = S.HitReadback(idxs, cnt)
+    parts, rb = readback(on)
     assert (rb.event is None) == (device == "cpu")
     if device == "cuda":
         assert not rb.ready()  # behind the spin
-        got, syncs = _syncs(lambda: _read(lambda i, c: rb.read(), idxs, cnt))
+        got, syncs = _syncs(lambda: _read_rows(rb))
         assert syncs == 0 and rb.ready()
     else:
         assert rb.ready()
-        got = _read(lambda i, c: rb.read(), idxs, cnt)
-    want = _read(_draining_read, idxs, cnt)
-    assert got == want
+        got = _read_rows(rb)
+    want = [_read(_draining_read, i, c) for i, c in parts]
     if hits > CAP:
-        assert want == ("overflow", hits)
-    else:
-        assert want == (hits, sorted(torch.nonzero(mask)[:, 0].tolist()))
+        assert got == want[-1] == ("overflow", hits)
+        return
+    assert got == want
+    assert want[-1] == (hits, sorted(torch.nonzero(masks[-1])[:, 0].tolist()))
+    t_jobs = GEOM["jobs_per_epoch"]
+    loop = types.SimpleNamespace(
+        _behind=(), device=torch.device(device),
+        cfg=types.SimpleNamespace(jobs_per_epoch=t_jobs),
+        _records=lambda pub, pk, base, bits: [
+            (base, f) for f in G.hit_indices(bits).tolist()])
+    first_job = 7 * rows * t_jobs
+    batch, gs = S.Solver._collect(loop, None, 0, (7, first_job, rb, 99))
+    assert gs == 99 and batch == [(first_job + c * t_jobs, f)
+                                  for c, (_, flat) in enumerate(want)
+                                  for f in flat]
 
 
 def _plant(baby, cfg, q0, m):

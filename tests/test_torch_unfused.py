@@ -1,9 +1,10 @@
-"""The port's unfused epoch (giant.run_epoch, the row-major field/ec
-surface) against bsgs_tpu's run_epoch on one packed table, bit for bit,
-with planted hits of codes 1, 2, 4 and 5; an unfused Solver and the
-command line at an N that solver.chain_layout refuses, finding a planted
-key; and epoch striping (solve(epoch_stride=, epoch_offset=)) covering a
-range as tests/test_solver.py's striping test does."""
+"""The port's unfused epoch (giant.epoch_probes through make_probe, the
+row-major field/ec surface) against bsgs_tpu's run_epoch on one packed
+table, bit for bit, with planted hits of codes 1, 2, 4 and 5; an unfused
+Solver and the command line at an N that solver.chain_layout refuses,
+finding a planted key; and epoch striping (solve(epoch_stride=,
+epoch_offset=)) covering a range as tests/test_solver.py's striping test
+does."""
 
 import numpy as np
 import pytest
@@ -56,8 +57,9 @@ def epoch_case():
 def _port_epoch(c, hit_cap):
     t = [torch.from_numpy(c[k].astype(np.int64))
          for k in ("cx", "cy", "ox", "oy")]
-    return G.run_epoch(t[0], t[1], torch.from_numpy(c["cinf"]), t[2], t[3],
-                       c["rows"], htsz=HTSZ, hit_cap=hit_cap)
+    return G.epoch_probes(t[0], t[1], torch.from_numpy(c["cinf"]), t[2],
+                          t[3], G.make_probe(c["rows"], htsz=HTSZ),
+                          hit_cap=hit_cap)
 
 
 def test_run_epoch_matches_jax(epoch_case):
@@ -65,15 +67,15 @@ def test_run_epoch_matches_jax(epoch_case):
     j_idx, j_cnt, j_gs = JG.run_epoch(
         *(jnp.asarray(c[k]) for k in ("cx", "cy", "cinf", "ox", "oy")),
         c["table"].dense, htsz=HTSZ, chunk=8, hit_cap=16)
-    idx, cnt, gs = _port_epoch(c, 16)
-    assert gs == j_gs == (2 * N + 1) * T_JOBS
+    idx, cnt = _port_epoch(c, 16)
+    assert j_gs == (2 * N + 1) * T_JOBS  # jobs_span * T
     assert int(cnt) == int(j_cnt)
     np.testing.assert_array_equal(convert.u32(idx), np.asarray(j_idx))
     codes = {G.decode_flat(int(f), T_JOBS, N)
              for f in G.hit_indices(idx.numpy())}
     assert {(1, 0, 2), (2, 3, 5), (4, 1, 3), (5, 2, 0), (5, 3, 0)} <= codes
     # an overflowing buffer keeps the first hits and the full count
-    idx_o, cnt_o, _ = _port_epoch(c, 2)
+    idx_o, cnt_o = _port_epoch(c, 2)
     assert int(cnt_o) == int(j_cnt)
     np.testing.assert_array_equal(convert.u32(idx_o),
                                   np.asarray(j_idx)[:2])
