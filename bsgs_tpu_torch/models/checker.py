@@ -63,14 +63,17 @@ def verify_hits_batched(records, table: BabyTable):
 
     The passes are the spans ``landings``, ``lookup`` (with the device
     bracket of its row pulls and residue scans, and the change of a rescan
-    lookup's ``stats``: lookups, rejected, residue_scans) and ``confirm``.
+    lookup's ``stats``: lookups, rejected, residue_scans) and ``confirm``;
+    ``landings`` and ``confirm`` count ``fixed_muls``, their
+    multiplications of G (ecpy's window table).
     """
     recs = list(records)
     q0_cache: dict = {}
     # pass 1: (record, m, landing-prefix or None for direct m*S candidates)
     work = []
     need = []
-    with tracing.span("landings"):
+    with tracing.span("landings") as sp:
+        sp.delta("fixed_muls", ecpy.fixed_muls)
         for ctx, code, t, j in recs:
             key = (ctx.q, ctx.pk)
             if key not in q0_cache:
@@ -97,7 +100,8 @@ def verify_hits_batched(records, table: BabyTable):
             sp.deltas(stats)
         positions = table.lookup_positions_batch(need) if need else {}
     keys = []
-    with tracing.span("confirm"):
+    with tracing.span("confirm") as sp:
+        sp.delta("fixed_muls", ecpy.fixed_muls)
         for ctx, m, pre in work:
             if pre is None:
                 candidates = [m * ctx.s]

@@ -193,29 +193,23 @@ def host_row(base_pt, step_pt, m: int):
 def host_row_shared(base_pt, multiples):
     """host_row's [base + i*step for i in range(m)] from the multiples
     [i*step for i = 1..m-1], with one modular inversion for the row
-    (Montgomery's trick): the prefix products of the differences
-    x_i - x_base, one inverse of their product, then the inverse of each
-    difference walking back. Returns host_row's (x, y, inf), or None
-    where the trick does not apply: base at infinity, or a difference of
-    zero (base = +-i*step: a doubling, or a lane at infinity), which
-    host_row takes."""
+    (ecpy.shared_inverses of the differences x_i - x_base). Returns
+    host_row's (x, y, inf), or None where the trick does not apply: base
+    at infinity, or a difference of zero (base = +-i*step: a doubling, or
+    a lane at infinity), which host_row takes."""
     if base_pt is None:
         return None
     p = ecpy.P
     bx, by = base_pt
-    diffs = [(x - bx) % p for x, _ in multiples]
-    prods = [1]
-    for d in diffs:
-        prods.append(prods[-1] * d % p)
-    if not prods[-1]:
+    invs = ecpy.shared_inverses([x - bx for x, _ in multiples])
+    if invs is None:
         return None
-    inv = pow(prods[-1], -1, p)
-    xs, ys = [bx] * len(prods), [by] * len(prods)
-    for i in range(len(diffs) - 1, -1, -1):
-        lam = (multiples[i][1] - by) * inv * prods[i] % p  # / diffs[i]
-        inv = inv * diffs[i] % p
-        x = (lam * lam - bx - multiples[i][0]) % p
-        xs[i + 1], ys[i + 1] = x, (lam * (bx - x) - by) % p
+    xs, ys = [bx], [by]
+    for (mx, my), inv in zip(multiples, invs):
+        lam = (my - by) * inv % p
+        x = (lam * lam - bx - mx) % p
+        xs.append(x)
+        ys.append((lam * (bx - x) - by) % p)
     return (F.to_limbs_batch(xs), F.to_limbs_batch(ys),
             np.zeros((len(xs),), bool))
 

@@ -96,8 +96,18 @@ def _fields(res):
     return (res.key, res.giant_steps, res.epochs, res.hits_checked)
 
 
-def test_span_tree_of_a_rescan_solve(case, recorder):
+def test_span_tree_of_a_rescan_solve(case, recorder, monkeypatch):
     launches = _cuda.total_launches()
+    ran = collections.Counter()  # multiplications of G inside each pass
+    mul = ecpy.mul
+
+    def counted(k, pt=ecpy.G):
+        for name in ("landings", "confirm"):
+            if pt == ecpy.G and recorder.RECORDER.innermost(name):
+                ran[name] += 1
+        return mul(k, pt)
+
+    monkeypatch.setattr(ecpy, "mul", counted)
     res = _solve(case)
     recs = recorder.records()
     cfg = case["cfg"]
@@ -112,6 +122,9 @@ def test_span_tree_of_a_rescan_solve(case, recorder):
     assert count("verify", "records") == res.hits_checked
     assert count("collect", "hits") == res.hits_checked
     assert count("verify", "keys") == 1
+    # landings and confirm count each multiplication of G they ran
+    assert count("landings", "fixed_muls") == ran["landings"] > 0
+    assert count("confirm", "fixed_muls") == ran["confirm"] > 0
     drained = [r.epoch for r in by["collect"]
                if r.epoch is not None and "hits" in r.counts]
     assert len(drained) == res.epochs == len(by["wait"])
@@ -149,6 +162,9 @@ def test_span_tree_of_a_rescan_solve(case, recorder):
     table = recorder.report()
     for name in TREE:
         assert f"\n{name} " in "\n" + table
+    for name in ("landings", "confirm"):
+        (row,) = [ln for ln in table.splitlines() if ln.startswith(name)]
+        assert f"fixed_muls={ran[name]}" in row
 
 
 def test_centers_carry_the_first_center(case, recorder):
