@@ -26,9 +26,10 @@ device, through the same record. ``solve(epoch_stride=, epoch_offset=)``
 stripes the epochs over workers.
 
 With the recorder of ``utils/tracing`` on, the loop records its spans
-(solve, epoch, centers, stage, launch, collect, wait, verify and the
-checker's passes; build in build_table), their counts, and on a card the
-device bracket of each epoch, anchored at the event a wait waited on.
+(solve, epoch, centers, stage, launch, collect, wait, verify, the
+checker's passes and the residue scans, and tail, a solve's end; build in
+build_table), their counts, and on a card the device bracket of each
+epoch, anchored at the event a wait waited on.
 
 Tables of w >= 2^28 are built streamed (table.build_baby_table_streamed;
 parallel/sharded_table.py splits one by bucket range over several cards).
@@ -41,6 +42,7 @@ one batch (``SolverConfig.verify_defer_epochs``); its ``on_epoch`` and
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Optional
@@ -677,7 +679,11 @@ class Solver:
 
         Recorded as the span ``solve``, with the epochs drained, the giant
         steps and steps_to_key (the steps up to the returned key's landing:
-        the rest scanned past it)."""
+        the rest scanned past it). Inside it the span ``tail`` runs from
+        the dispatch of the solve's last epoch to its return: the drain of
+        the epochs in flight and the last pooled verification, counting
+        the ``epochs`` drained and the ``records`` verified in it, and
+        ``found``, 1 where the solve returns a key."""
         with tracing.span("solve") as sp:
             try:
                 res = self._scan(pub, pk, pke, progress, epoch_stride,
@@ -740,48 +746,61 @@ class Solver:
         pending = []
         first_pending = 0
         unreported = []  # (epoch, steps) drained, not yet called back
-        while may_dispatch() or inflight or pending_flush():
-            while may_dispatch() and len(inflight) < depth:
-                inflight.append(self._dispatch(q0, epoch))
-                dispatched += 1
-                epoch += epoch_stride
-            if not inflight:
-                inflight.append(self._flush())
-            rec = inflight.popleft()
-            e = rec[0]
-            while True:
-                try:
-                    batch, gs = self._collect(pub, pk, rec)
-                    break
-                except HitOverflow as ov:
-                    # re-run this epoch with a buffer that fits
-                    cap = 1 << max(ov.count.bit_length() + 1, 8)
-                    rec = self._redispatch(q0, e, cap)
-            steps += gs
-            if e is not None:  # not the priming step of a pipelined scan
-                drained += 1
-                unreported.append((e, steps))
-            if batch:
+        tail = None  # the span from the last epoch's dispatch to the end
+        with contextlib.ExitStack() as ends:
+            while may_dispatch() or inflight or pending_flush():
+                while may_dispatch() and len(inflight) < depth:
+                    inflight.append(self._dispatch(q0, epoch))
+                    dispatched += 1
+                    epoch += epoch_stride
+                if tail is None and not may_dispatch():
+                    tail = ends.enter_context(tracing.span("tail"))
+                if not inflight:
+                    inflight.append(self._flush())
+                rec = inflight.popleft()
+                e = rec[0]
+                while True:
+                    try:
+                        batch, gs = self._collect(pub, pk, rec)
+                        break
+                    except HitOverflow as ov:
+                        # re-run this epoch with a buffer that fits
+                        cap = 1 << max(ov.count.bit_length() + 1, 8)
+                        rec = self._redispatch(q0, e, cap)
+                steps += gs
+                if e is not None:  # not a pipelined scan's priming step
+                    drained += 1
+                    unreported.append((e, steps))
+                    if tail is not None:
+                        tail.count("epochs", 1)
+                if batch:
+                    if not pending:
+                        first_pending = drained
+                    pending.extend(batch)
+                scan_done = not (may_dispatch() or inflight
+                                 or pending_flush())
+                if pending and (scan_done
+                                or drained - first_pending >= defer):
+                    key, hc = self._verify(pending, pk, pke)
+                    hits_checked += hc
+                    pending = []
+                    if tail is not None:
+                        tail.count("records", hc)
+                        tail.count("found", int(key is not None))
+                    if key is not None:
+                        return SolveResult(
+                            key, steps, time.perf_counter() - t0, drained,
+                            hits_checked
+                        )
                 if not pending:
-                    first_pending = drained
-                pending.extend(batch)
-            scan_done = not (may_dispatch() or inflight or pending_flush())
-            if pending and (scan_done or drained - first_pending >= defer):
-                key, hc = self._verify(pending, pk, pke)
-                hits_checked += hc
-                pending = []
-                if key is not None:
-                    return SolveResult(
-                        key, steps, time.perf_counter() - t0, drained,
-                        hits_checked
-                    )
-            if not pending:
-                for e0, st0 in unreported:
-                    if on_epoch is not None:
-                        on_epoch(e0, st0)
-                    if progress is not None:
-                        progress(e0 + 1, total_epochs, st0,
-                                 time.perf_counter() - t0)
-                unreported.clear()
-        return SolveResult(None, steps, time.perf_counter() - t0, drained,
-                           hits_checked)
+                    for e0, st0 in unreported:
+                        if on_epoch is not None:
+                            on_epoch(e0, st0)
+                        if progress is not None:
+                            progress(e0 + 1, total_epochs, st0,
+                                     time.perf_counter() - t0)
+                    unreported.clear()
+            if tail is not None:
+                tail.count("found", 0)
+            return SolveResult(None, steps, time.perf_counter() - t0,
+                               drained, hits_checked)

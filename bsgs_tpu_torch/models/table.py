@@ -37,7 +37,7 @@ import torch
 from .. import resolve_device
 from ..ops import (ec, epoch_kernel as EK, field as F, planar as PL,
                    probe_kernel)
-from ..utils import ecpy, native
+from ..utils import ecpy, native, tracing
 
 # Empty dense slots hold 0xFFFFFFFF. A probe whose own disc equals it
 # false-positives (P = 2^-32 per probe); the host checker verifies every hit.
@@ -249,6 +249,12 @@ def _prefix_tiles(w: int, tile: int, device, first: int = 1,
             bx, by, _ = ec.extend_tile(bx, by, *c)
 
 
+def _planar_tile(w: int, tile: int) -> int:
+    """The tile _prefix_tiles_planar fills for w points: ``tile``, or the
+    power of two that holds w where that is smaller (2^11 at least)."""
+    return min(tile, 1 << max(11, (w - 1).bit_length()))
+
+
 def _prefix_tiles_planar(w: int, tile: int, device, first: int = 1,
                          stride: int = 1):
     """Yield (hi, lo) (take,) int32 prefix planes of (first + i*stride)G
@@ -257,7 +263,7 @@ def _prefix_tiles_planar(w: int, tile: int, device, first: int = 1,
     by tile*stride*G. The tile stays packed ((8, tile) words, 32 bytes a
     point) for the whole build: words 1 and 0 of x are the first tile's
     prefix halves."""
-    tile = min(tile, 1 << max(11, (w - 1).bit_length()))
+    tile = _planar_tile(w, tile)
     if tile & (tile - 1):
         raise ValueError(f"tile must be a power of two (got {tile})")
     xs, ys = EK.fill_multiples_packed(ecpy.mul(first), ecpy.mul(stride),
@@ -500,7 +506,12 @@ def make_strided_lookup(w: int, dense, pos_lo, htsz: int,
     every candidate is still confirmed by exact host EC in the checker.
     ``lookup.batch(pres)`` resolves each prefix in turn (one residue scan
     per surviving residue class of each prefix); ``lookup.stats`` counts
-    lookups, slots rejected by the extra bits, and residue scans."""
+    lookups, slots rejected by the extra bits, and residue scans.
+
+    Each residue scan is recorded as the span ``residue`` (counts
+    ``points`` regenerated, ``tiles`` and ``seed_additions``, the fill
+    seed's host additions), with no device bracket of its own: the
+    checker's ``lookup`` brackets it."""
     sh, mk = _disc_lo_shift(htsz)
     stats = {"lookups": 0, "rejected": 0, "residue_scans": 0}
 
@@ -512,10 +523,17 @@ def make_strided_lookup(w: int, dense, pos_lo, htsz: int,
         count = (w - first) // 256 + 1
         out = []
         done = 0
-        for hi, lo in _prefix_tiles_planar(count, tile, dense.device,
-                                           first=first, stride=256):
-            out.extend(first + (done + i) * 256 for i in _match(hi, lo, pre64))
-            done += hi.shape[0]
+        with tracing.span("residue") as sp:
+            if sp:
+                t = _planar_tile(count, tile)
+                sp.count("points", count)
+                sp.count("tiles", -(-count // t))
+                sp.count("seed_additions", min(EK.FILL_SEED, t))
+            for hi, lo in _prefix_tiles_planar(count, tile, dense.device,
+                                               first=first, stride=256):
+                out.extend(first + (done + i) * 256
+                           for i in _match(hi, lo, pre64))
+                done += hi.shape[0]
         return [r for r in out if 1 <= r <= w]
 
     def resolve(pre64: int) -> list:

@@ -214,12 +214,16 @@ def jax_sharded():
 
 def test_mesh_solver_records_the_single_cards_spans(sharded_world):
     """Each rank of a MeshSolver records the single card's span tree, the
-    hit gather inside the epoch, and one collect an epoch drained."""
+    hit gather inside the epoch, and one collect an epoch drained. The key
+    is found in the solve's tail (after the last super-epoch's dispatch),
+    which holds the last collect and the verification with its residue
+    scans."""
     got, ranks, _, _ = sharded_world
-    tree = [("centers", "epoch"), ("collect", "solve"), ("confirm", "verify"),
-            ("epoch", "solve"), ("gather", "epoch"), ("landings", "verify"),
-            ("launch", "epoch"), ("lookup", "verify"), ("solve", ""),
-            ("stage", "epoch"), ("verify", "solve"), ("wait", "collect")]
+    tree = [("centers", "epoch"), ("collect", "solve"), ("collect", "tail"),
+            ("confirm", "verify"), ("epoch", "solve"), ("gather", "epoch"),
+            ("landings", "verify"), ("launch", "epoch"), ("lookup", "verify"),
+            ("residue", "lookup"), ("solve", ""), ("stage", "epoch"),
+            ("tail", "solve"), ("verify", "tail"), ("wait", "collect")]
     for own in ranks:
         assert [tuple(x) for x in own["spans"]] == tree
         assert own["drained"] == got["solve"]["epochs"]

@@ -2,7 +2,8 @@
 tree of a solve on a rescan table with planted false positives (counts
 against the SolveResult, the launch counter and the lookup's stats), the
 centers' counts of a new solver (the first center carried after the first
-epoch), the recorder off (no records, the same result), the ring, the
+epoch), the recorder off (no records, the same result), a solve's tail
+and its residue scans, the ring, the
 chrome trace, idle gaps on synthetic brackets, and the command line's
 BSGS_TORCH_TRACE.
 A MeshSolver's spans are checked in tests/test_torch_distributed.py's
@@ -32,10 +33,14 @@ GEOM = dict(w=256, htsz=6, n_offsets=8, jobs_per_epoch=2, window=16,
             chunk_c=2, lanes_w=4, epoch_phases=2, positions="rescan",
             verify_defer_epochs=2)
 PK = 1 << 21
-TREE = {"solve": None, "epoch": "solve", "centers": "epoch",
-        "stage": "epoch", "launch": "epoch", "collect": "solve",
-        "wait": "collect", "verify": "solve", "landings": "verify",
-        "lookup": "verify", "confirm": "verify"}
+# each span's possible parents: the tail holds what follows the last
+# epoch's dispatch
+TREE = {"solve": (None,), "epoch": ("solve",), "centers": ("epoch",),
+        "stage": ("epoch",), "launch": ("epoch",),
+        "collect": ("solve", "tail"), "wait": ("collect",),
+        "verify": ("solve", "tail"), "landings": ("verify",),
+        "lookup": ("verify",), "residue": ("lookup",), "confirm": ("verify",),
+        "tail": ("solve",)}
 
 
 @pytest.fixture
@@ -114,7 +119,7 @@ def test_span_tree_of_a_rescan_solve(case, recorder, monkeypatch):
     assert res.key == case["key"] and res.hits_checked >= 4
     assert {r.name for r in recs} == set(TREE)
     for r in recs:
-        assert r.parent == TREE[r.name], r.name
+        assert r.parent in TREE[r.name], r.name
         assert r.t0 <= r.t1
     assert len({r.solve for r in recs}) == 1
     by = {n: [r for r in recs if r.name == n] for n in TREE}
@@ -201,6 +206,68 @@ def test_off_records_nothing_and_changes_nothing(case):
         tracing.disable()
     assert tracing.records() and _fields(on) == _fields(off)
     tracing.clear()
+
+
+# a deferral longer than the range, as in a recovery batch: every pooled
+# hit is verified in the solve's tail; w = 1000 gives residue scans of 3
+# or 4 points
+TAIL_GEOM = dict(GEOM, w=1000, htsz=8, verify_defer_epochs=64)
+
+
+@pytest.fixture(scope="module")
+def tail_solver():
+    cfg = S.SolverConfig(**TAIL_GEOM)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(T, "STREAMED_W", 128)
+        baby = S.build_table(cfg, device="cpu")
+    return S.Solver(cfg, baby=baby, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["found", "exhausted", "off"])
+def test_tail_and_residue_spans(tail_solver, kind):
+    """A 4-epoch range: a found key's solve records one ``tail`` (found
+    1, its pooled records) and the key's residue scan inside ``lookup``
+    (points, tiles, the fill seed's additions); an exhausted one a tail
+    with found 0; with the recorder off both spans are the null context
+    and nothing is recorded."""
+    s = tail_solver
+    cfg = s.cfg
+    pke = PK + 4 * cfg.keys_per_epoch - 1
+    k = (pke if kind == "exhausted" else PK + 2 * cfg.keys_per_epoch) + 777
+    tracing.clear()
+    if kind == "off":
+        assert tracing.span("tail") is tracing.span("residue") is tracing.NULL
+    else:
+        tracing.enable()
+    try:
+        res = s.solve(ecpy.mul(k), PK, pke)
+    finally:
+        tracing.disable()
+    recs = tracing.records()
+    tracing.clear()
+    assert res.key == (None if kind == "exhausted" else k)
+    if kind == "off":
+        assert recs == []
+        return
+    (solve,) = [r for r in recs if r.name == "solve"]
+    (tail,) = [r for r in recs if r.name == "tail"]
+    assert tail.parent == "solve" and solve.t0 <= tail.t0 <= tail.t1
+    assert 1 <= tail.counts["epochs"] <= cfg.pipeline
+    assert tail.counts.get("records", 0) == res.hits_checked
+    if kind == "exhausted":
+        assert tail.counts["found"] == 0
+        return
+    assert tail.counts["found"] == 1 and tail.counts["records"] >= 1
+    residue = [r for r in recs if r.name == "residue"]
+    assert residue and {r.parent for r in residue} == {"lookup"}
+    assert all(tail.t0 <= r.t0 <= r.t1 <= tail.t1 for r in residue)
+    assert {(r.counts["tiles"], r.counts["seed_additions"])
+            for r in residue} == {(1, 1024)}  # one 2^11 tile
+    k0 = k - PK
+    m = (k0 + cfg.w) // cfg.stride
+    first = abs(k0 - m * cfg.stride) % 256 or 256  # the key's residue
+    assert (cfg.w - first) // 256 + 1 in {r.counts["points"]
+                                          for r in residue}
 
 
 def test_ring_drops_the_oldest():
