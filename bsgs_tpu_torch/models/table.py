@@ -262,7 +262,11 @@ def _prefix_tiles_planar(w: int, tile: int, device, first: int = 1,
     (ops/epoch_kernel.tile_advance_packed: four kernel launches) moves it on
     by tile*stride*G. The tile stays packed ((8, tile) words, 32 bytes a
     point) for the whole build: words 1 and 0 of x are the first tile's
-    prefix halves."""
+    prefix halves. The builds and the hintless rescan run it; the residue
+    scans of make_strided_lookup run _ResidueTiles, which yields the same
+    tiles of the stride-256 stream from a first tile kept per lookup (64
+    MiB at ``tile`` 2^20, filled by its first scan, whose ``residue`` span
+    counts ``kept`` 0)."""
     tile = _planar_tile(w, tile)
     if tile & (tile - 1):
         raise ValueError(f"tile must be a power of two (got {tile})")
@@ -270,7 +274,12 @@ def _prefix_tiles_planar(w: int, tile: int, device, first: int = 1,
                                       tile, device=device)
     step = ecpy.mul(tile * stride)
     cxc, cyc = (PL.packed_col(v, device) for v in step)
-    hi, lo = xs[1], xs[0]
+    yield from _advancing(xs, ys, xs[1], xs[0], w, tile, cxc, cyc)
+
+
+def _advancing(xs, ys, hi, lo, w: int, tile: int, cxc, cyc):
+    """Yield (hi, lo)[:take] of the packed tile (xs, ys), then of each tile
+    advance by the packed step columns (cxc, cyc), until w points."""
     done = 0
     while done < w:
         take = min(tile, w - done)
@@ -278,6 +287,47 @@ def _prefix_tiles_planar(w: int, tile: int, device, first: int = 1,
         done += take
         if done < w:
             xs, ys, hi, lo = EK.tile_advance_packed(xs, ys, cxc, cyc)
+
+
+class _ResidueTiles:
+    """The residue scans' generator for one table of w baby points:
+    ``tiles(first)`` yields (first + 256*i)G, i < (w - first)//256 + 1, for
+    a residue class ``first`` in 1..256: the tiles and bits of
+    _prefix_tiles_planar(count, tile, device, first=first, stride=256).
+
+    It keeps K = (256*(i+1))G, i < t, packed on the device, t the tile of
+    class 1, the largest any class takes (64 MiB at ``tile`` 2^20), and the
+    packed columns of the advance's step (t*256)G. Class 256's first tile
+    is K; class ``first``'s is K + (first - 256)G, one tile advance with no
+    doubling lane, since 256(i+1) is never ±(first - 256). The first scan
+    fills K (fill_multiples_packed), so a table that never scans keeps
+    nothing."""
+
+    def __init__(self, w: int, tile: int, device):
+        self.w, self.tile, self.device = w, tile, device
+        self.t = _planar_tile((w - 1) // 256 + 1, tile)
+        self.kept = None  # (K's x, K's y, step x column, step y column)
+
+    def tiles(self, first: int):
+        count = (self.w - first) // 256 + 1
+        t = _planar_tile(count, self.tile)
+        dev = self.device
+        if self.kept is None:
+            kx, ky = EK.fill_multiples_packed(ecpy.mul(256), ecpy.mul(256),
+                                              self.t, device=dev)
+            step = ecpy.mul(self.t * 256)
+            self.kept = (kx, ky, *(PL.packed_col(v, dev) for v in step))
+        kx, ky, cxc, cyc = self.kept
+        # a class whose tile is narrower than K's fits in that one tile, so
+        # every advance below steps by K's own (t*256)G
+        xs, ys = kx[:, :t].contiguous(), ky[:, :t].contiguous()
+        if first == 256:
+            hi, lo = xs[1], xs[0]
+        else:
+            c = ecpy.neg(ecpy.mul(256 - first))
+            xs, ys, hi, lo = EK.tile_advance_packed(
+                xs, ys, PL.packed_col(c[0], dev), PL.packed_col(c[1], dev))
+        yield from _advancing(xs, ys, hi, lo, count, t, cxc, cyc)
 
 
 def compute_prefixes(w: int, tile: int = 1 << 18, device=None) -> np.ndarray:
@@ -508,12 +558,22 @@ def make_strided_lookup(w: int, dense, pos_lo, htsz: int,
     per surviving residue class of each prefix); ``lookup.stats`` counts
     lookups, slots rejected by the extra bits, and residue scans.
 
+    The residue scans share one kept tile (_ResidueTiles): the first
+    scan fills K = (256*(i+1))G, i < t, the first tile of the stride-256
+    stream (t = the tile of class 1; 64 MiB on the table's device at
+    ``tile`` 2^20, freed with the table), and every scan reaches its
+    class's first tile from K with one tile advance. A lookup that never
+    scans keeps nothing.
+
     Each residue scan is recorded as the span ``residue`` (counts
-    ``points`` regenerated, ``tiles`` and ``seed_additions``, the fill
-    seed's host additions), with no device bracket of its own: the
-    checker's ``lookup`` brackets it."""
+    ``points`` regenerated, ``tiles``, ``kept``, 1 where the class's first
+    tile came from the kept tile and 0 where this scan filled it, and
+    ``seed_additions``, the host additions of that fill's seed, 0 on a
+    kept scan), with no device bracket of its own: the checker's
+    ``lookup`` brackets it."""
     sh, mk = _disc_lo_shift(htsz)
     stats = {"lookups": 0, "rejected": 0, "residue_scans": 0}
+    stream = _ResidueTiles(w, tile, dense.device)
 
     def _residue_scan(pre64: int, r_lo: int) -> list:
         first = r_lo if r_lo else 256
@@ -525,12 +585,13 @@ def make_strided_lookup(w: int, dense, pos_lo, htsz: int,
         done = 0
         with tracing.span("residue") as sp:
             if sp:
-                t = _planar_tile(count, tile)
+                kept = stream.kept is not None
                 sp.count("points", count)
-                sp.count("tiles", -(-count // t))
-                sp.count("seed_additions", min(EK.FILL_SEED, t))
-            for hi, lo in _prefix_tiles_planar(count, tile, dense.device,
-                                               first=first, stride=256):
+                sp.count("tiles", -(-count // _planar_tile(count, tile)))
+                sp.count("kept", int(kept))
+                sp.count("seed_additions",
+                         0 if kept else min(EK.FILL_SEED, stream.t))
+            for hi, lo in stream.tiles(first):
                 out.extend(first + (done + i) * 256
                            for i in _match(hi, lo, pre64))
                 done += hi.shape[0]

@@ -142,7 +142,7 @@ def test_streamed_table_probes_members_only(built):
 # ---------------------------------------------------------------------------
 # Lookups
 
-MEMBERS = [1, 2, 255, 256, 257, 511, 512]
+MEMBERS = [1, 2, 7, 255, 256, 257, 511, 512]
 NON_MEMBERS = [512 + 5, 512 + 999]
 
 
@@ -185,6 +185,11 @@ def test_false_positive_rejected_without_regeneration(built, monkeypatch):
     def no_generation(*a, **kw):
         raise AssertionError("the prefix generator was called")
 
+    # the residue scans' stream, the fill of its kept tile, its advances,
+    # and the build's stream
+    monkeypatch.setattr(T._ResidueTiles, "tiles", no_generation)
+    monkeypatch.setattr(T.EK, "fill_multiples_packed", no_generation)
+    monkeypatch.setattr(T.EK, "tile_advance_packed", no_generation)
     monkeypatch.setattr(T, "_prefix_tiles_planar", no_generation)
     assert lookup(pre) == []
     assert lookup.batch([pre]) == {pre: []}

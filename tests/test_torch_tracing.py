@@ -223,17 +223,22 @@ def tail_solver():
     return S.Solver(cfg, baby=baby, device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["found", "exhausted", "off"])
+@pytest.mark.parametrize("kind", ["found", "exhausted", "off", "again"])
 def test_tail_and_residue_spans(tail_solver, kind):
     """A 4-epoch range: a found key's solve records one ``tail`` (found
     1, its pooled records) and the key's residue scan inside ``lookup``
-    (points, tiles, the fill seed's additions); an exhausted one a tail
-    with found 0; with the recorder off both spans are the null context
-    and nothing is recorded."""
+    (points, tiles, ``kept`` and the fill seed's additions: the table's
+    first scan fills the kept tile, kept 0 and 1,024 additions); an
+    exhausted one a tail with found 0; with the recorder off both spans
+    are the null context and nothing is recorded; a second solve of a
+    found key (``again``) scans from the kept tile, kept 1 and no
+    additions."""
     s = tail_solver
     cfg = s.cfg
     pke = PK + 4 * cfg.keys_per_epoch - 1
     k = (pke if kind == "exhausted" else PK + 2 * cfg.keys_per_epoch) + 777
+    if kind == "again":
+        assert s.solve(ecpy.mul(k), PK, pke).key == k
     tracing.clear()
     if kind == "off":
         assert tracing.span("tail") is tracing.span("residue") is tracing.NULL
@@ -261,8 +266,13 @@ def test_tail_and_residue_spans(tail_solver, kind):
     residue = [r for r in recs if r.name == "residue"]
     assert residue and {r.parent for r in residue} == {"lookup"}
     assert all(tail.t0 <= r.t0 <= r.t1 <= tail.t1 for r in residue)
-    assert {(r.counts["tiles"], r.counts["seed_additions"])
-            for r in residue} == {(1, 1024)}  # one 2^11 tile
+    # one 2^11 tile; the "found" case is the table's first solve
+    counts = [(r.counts["tiles"], r.counts["kept"], r.counts["seed_additions"])
+              for r in residue]
+    if kind == "found":
+        assert counts == [(1, 0, 1024)] + [(1, 1, 0)] * (len(counts) - 1)
+    else:
+        assert set(counts) == {(1, 1, 0)}
     k0 = k - PK
     m = (k0 + cfg.w) // cfg.stride
     first = abs(k0 - m * cfg.stride) % 256 or 256  # the key's residue
