@@ -37,7 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import ec, epoch_kernel as EK, field as F
+from ..ops import _cuda, ec, epoch_kernel as EK, field as F
+from ..utils import tracing
 from . import table as T
 
 # Unused hit slots (0xFFFFFFFF as int32 bits).
@@ -226,6 +227,14 @@ def probe_keys_flush(keys, bc, dc, cinf, rows, *, hit_cap: int = 512):
     return idxs, cnt[0]
 
 
+def _fork(dev):
+    """(current stream, probe stream) of a card, where a pipelined step
+    probes on a stream of its own; (None, None) on the CPU."""
+    if dev.type != "cuda":
+        return None, None
+    return torch.cuda.current_stream(dev), probe_stream(dev)
+
+
 def pipelined_step(prev_keys, prev_bc, prev_dc, prev_cinf, prev_valid,
                    cx, cy, ox, oy, rows, *, htsz: int,
                    chunk_c: int = EK.CHUNK_C, lanes_w: int = EK.LANES_W,
@@ -243,32 +252,48 @@ def pipelined_step(prev_keys, prev_bc, prev_dc, prev_cinf, prev_valid,
     the read of the hits included, sees them whole. On the CPU the two
     halves run one after the other.
 
+    Recorded as ``probe`` (counts ``keys``, the 2TN + T probed, and
+    ``launches``) and ``keys`` (counts ``T``), each with a device bracket
+    on its own stream; where the probe forks, the open spans bracketed on
+    the current stream count the fork and the join (tracing.fork_streams,
+    join_streams).
+
     Returns (keys, bc, dc, idxs_prev, cnt_prev)."""
     dev = cx.device
-    done = None
+    cur, side = _fork(dev)
     if not prev_valid:
+        side = None  # nothing to probe
         idxs = torch.full((hit_cap,), FILL, dtype=torch.int32, device=dev)
         cnt = torch.zeros((), dtype=torch.int32, device=dev)
-    elif dev.type == "cuda":
-        cur, side = torch.cuda.current_stream(dev), probe_stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
+    else:
+        if side is not None:
+            side.wait_stream(cur)
+            tracing.fork_streams(cur.device)
+        # a no-op on the CPU (side None)
+        with torch.cuda.stream(side), tracing.span("probe") as sp:
+            if side is not None:
+                sp.begin_device(side.device)
+            sp.count("keys", 2 * prev_keys.shape[1] + prev_bc.shape[0])
+            sp.delta("launches", _cuda.total_launches)
             idxs, cnt = probe_keys_flush(prev_keys, prev_bc, prev_dc,
                                          prev_cinf, rows, hit_cap=hit_cap)
+        if side is not None:
             done = side.record_event()
-        # the previous bundle is read on side: its memory must not go
-        # back to the current stream's pool before side is done with it
-        for t in (prev_keys, prev_bc, prev_dc, prev_cinf):
-            t.record_stream(side)
-        # the hits are read on the current stream
-        idxs.record_stream(cur)
-        cnt.record_stream(cur)
-    else:
-        idxs, cnt = probe_keys_flush(prev_keys, prev_bc, prev_dc, prev_cinf,
-                                     rows, hit_cap=hit_cap)
-    keys = EK.epoch_landing_keys_packed(cx, cy, ox, oy, htsz=htsz,
-                                        chunk_c=chunk_c, lanes_w=lanes_w)
-    bc, dc = center_keys(cx, htsz)
-    if done is not None:
-        torch.cuda.current_stream(dev).wait_event(done)
+            # the previous bundle is read on side: its memory must not go
+            # back to the current stream's pool before side is done with
+            # it
+            for t in (prev_keys, prev_bc, prev_dc, prev_cinf):
+                t.record_stream(side)
+            # the hits are read on the current stream
+            idxs.record_stream(cur)
+            cnt.record_stream(cur)
+    with tracing.span("keys") as sk:
+        sk.begin_device(dev if cur is None else cur.device)
+        sk.count("T", cx.shape[1])
+        keys = EK.epoch_landing_keys_packed(cx, cy, ox, oy, htsz=htsz,
+                                            chunk_c=chunk_c, lanes_w=lanes_w)
+        bc, dc = center_keys(cx, htsz)
+    if side is not None:
+        cur.wait_event(done)
+        tracing.join_streams(cur.device)
     return keys, bc, dc, idxs, cnt

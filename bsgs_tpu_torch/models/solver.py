@@ -28,8 +28,9 @@ stripes the epochs over workers.
 With the recorder of ``utils/tracing`` on, the loop records its spans
 (solve, epoch, centers, stage, launch, collect, wait, verify, the
 checker's passes and the residue scans, and tail, a solve's end; build in
-build_table), their counts, and on a card the device bracket of each
-epoch, anchored at the event a wait waited on.
+build_table; a pipelined step's probe and keys, giant.pipelined_step),
+their counts, and on a card the device bracket of each epoch, anchored at
+the event a wait waited on.
 
 Tables of w >= 2^28 are built streamed (table.build_baby_table_streamed;
 parallel/sharded_table.py splits one by bucket range over several cards).
@@ -94,7 +95,8 @@ class SolverConfig:
     fused: the fused epoch (True), the unfused one (False), or None: fused
           wherever the chain layout fits n_offsets (layout_fits).
     cross_pipeline: on a fused solver, probe each epoch's keys while the
-          next epoch's are computed (giant.pipelined_step).
+          next epoch's are computed (giant.pipelined_step), where the
+          chain layout fits all T jobs at once; else the epochs run direct.
     positions: how a streamed build maps a hit to baby positions: "mirror",
           "rescan", or "auto" (rescan from tbl.STREAMED_W).
     verify_defer_epochs: drained epochs over which a rescan table's hits
@@ -143,6 +145,14 @@ class SolverConfig:
 
     @property
     def phases(self) -> int:
+        """Phases an epoch runs in: 1 under cross_pipeline (a pipelined
+        step computes all T jobs' keys at once), else direct_phases."""
+        return 1 if self.cross_pipeline else self.direct_phases
+
+    @property
+    def direct_phases(self) -> int:
+        """Phases of a direct epoch: epoch_phases, or 1 where it does not
+        divide jobs_per_epoch."""
         p = max(1, self.epoch_phases)
         return p if self.jobs_per_epoch % p == 0 else 1
 
@@ -378,7 +388,12 @@ class Solver:
         if self.baby.htsz != cfg.htsz:
             cfg.htsz = self.baby.htsz
         n = cfg.n_offsets
-        fits = layout_fits(n, cfg.jobs_per_epoch // cfg.phases, cfg.chunk_c,
+        # a pipelined step computes all T jobs at once; where their chains
+        # do not fit the kernels, the epochs run direct, in direct_phases
+        pipelined = cfg.cross_pipeline and layout_fits(
+            n, cfg.jobs_per_epoch, cfg.chunk_c, cfg.lanes_w)
+        phases = cfg.phases if pipelined else cfg.direct_phases
+        fits = layout_fits(n, cfg.jobs_per_epoch // phases, cfg.chunk_c,
                            cfg.lanes_w)
         self.fused = fits if cfg.fused is None else cfg.fused
         if self.fused and not fits:
@@ -386,10 +401,9 @@ class Solver:
                 f"n_offsets {n} does not fit the epoch kernels' chains of "
                 f"chunk_c*lanes_w ({cfg.chunk_c}*{cfg.lanes_w}; "
                 f"chain_layout picks one); fused=False takes any N")
-        self._pipelined = bool(self.fused and cfg.cross_pipeline)
-        # an unfused or pipelined epoch is one block of decode_flat's layout
-        self._phases = cfg.phases if self.fused and not self._pipelined \
-            else 1
+        self._pipelined = bool(self.fused and pipelined)
+        # an unfused epoch is one block of decode_flat's layout
+        self._phases = phases if self.fused else 1
         # Giant offsets O_j = j*S*G, j = 1..N, filled as packed (8, N)
         # planes (the fill doubles, so it runs to the next power of two),
         # which the fused epoch reads; unpacked once into planar (16, N)
@@ -498,17 +512,15 @@ class Solver:
         return -(-total_jobs // self._jobs_per_super)
 
     # -- epoch dispatch ------------------------------------------------------
-    def _queue(self, epoch: int, run, q0=None, streams: int = 1):
+    def _queue(self, epoch: int, run, q0=None):
         """The steps of every epoch the loop queues: the span ``epoch``
-        (counting ``T`` where it stages centers, and ``streams`` where its
-        work runs on more than one); this worker's centers of epoch
-        ``epoch``, staged (none without q0, when the device bracket starts
-        here); the span ``launch`` around ``run(*centers)``, which returns
-        (hit buffer, count); and the record's read-back of them
-        (_readback)."""
+        (counting ``T`` where it stages centers; giant.pipelined_step marks
+        it where its probe ran on a second stream); this worker's centers
+        of epoch ``epoch``, staged (none without q0, when the device
+        bracket starts here); the span ``launch`` around
+        ``run(*centers)``, which returns (hit buffer, count); and the
+        record's read-back of them (_readback)."""
         with tracing.span("epoch", epoch) as sp:
-            if streams > 1:
-                sp.count("streams", streams)
             if q0 is None:
                 sp.begin_device(self.device)
                 centers = ()
@@ -527,9 +539,33 @@ class Solver:
         return HitReadback(cnt, idxs)
 
     def _epoch(self, q0, epoch: int, hit_cap: Optional[int] = None):
-        """Queue one whole epoch on the device (fused or unfused); returns
-        a record (epoch, first_job, HitReadback, giant_steps)."""
+        """Queue one epoch on the device; returns a record (epoch,
+        first_job, HitReadback, giant_steps). Every epoch the loop queues
+        comes through here, and its landing keys are this epoch's.
+
+        Direct (fused or unfused), the record is this epoch's. Pipelined,
+        the epoch is one step (giant.pipelined_step): its keys, and the
+        probe of the previous step's keys, whose record it returns (None
+        epoch and no steps for a solve's priming step; _flush probes the
+        last step's). An overflow re-run (``hit_cap`` given) takes the
+        whole epoch directly, outside the pipeline."""
         cfg = self.cfg
+        if self._pipelined and hit_cap is None:
+            prev = self._prev
+
+            def step(cx, cy, cinf):
+                keys, bc, dc, idxs, cnt = giant.pipelined_step(
+                    *(prev[1:] if prev else (None,) * 4), prev is not None,
+                    cx, cy, self.ox_pk, self.oy_pk, self.baby.rows,
+                    htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
+                    hit_cap=cfg.hit_cap)
+                self._prev = (epoch, keys, bc, dc, cinf)
+                return idxs, cnt
+
+            hits = self._queue(epoch, step, q0)
+            if prev is None:
+                return None, None, hits, 0
+            return self._epoch_record(prev[0], hits)
         cap = hit_cap or cfg.hit_cap
 
         def run(cx, cy, cinf):
@@ -541,47 +577,28 @@ class Solver:
             return giant.epoch_probes(cx, cy, cinf, self.ox, self.oy,
                                       self._probe, hit_cap=cap)
 
-        hits = self._queue(epoch, run, q0)
+        return self._epoch_record(epoch, self._queue(epoch, run, q0))
+
+    def _epoch_record(self, epoch: int, hits: HitReadback):
+        """The record of epoch ``epoch``'s hits: (epoch, first_job,
+        HitReadback, giant_steps)."""
         return (epoch, epoch * self._jobs_per_super, hits,
-                cfg.jobs_span * self._jobs_per_super)
+                self.cfg.jobs_span * self._jobs_per_super)
 
     def _dispatch(self, q0, epoch: int):
-        """Queue epoch ``epoch``. Pipelined, this queues its keys and the
-        probe of the previously dispatched epoch's, and the record is that
-        epoch's (None epoch and no steps for the priming step; _flush
-        drains the last one)."""
-        if not self._pipelined:
-            return self._epoch(q0, epoch)
-        cfg = self.cfg
-        first_job = epoch * cfg.jobs_per_epoch
-        prev = self._prev
-
-        def run(cx, cy, cinf):
-            keys, bc, dc, idxs, cnt = giant.pipelined_step(
-                *(prev[1:] if prev else (None,) * 4), prev is not None,
-                cx, cy, self.ox_pk, self.oy_pk, self.baby.rows,
-                htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
-                hit_cap=cfg.hit_cap)
-            self._prev = (first_job, keys, bc, dc, cinf)
-            return idxs, cnt
-
-        # the last epoch's probe runs on a second stream
-        hits = self._queue(epoch, run, q0, streams=2)
-        if prev is None:
-            return None, None, hits, 0
-        return (prev[0] // cfg.jobs_per_epoch, prev[0], hits,
-                cfg.jobs_span * cfg.jobs_per_epoch)
+        """Queue epoch ``epoch`` (_epoch; pipelined, the record is the
+        previous step's)."""
+        return self._epoch(q0, epoch)
 
     def _flush(self):
-        """Probe the last key bundle of a pipelined scan."""
-        cfg = self.cfg
-        first_job, keys, bc, dc, cinf = self._prev
+        """Probe the last key bundle of a pipelined scan, on the current
+        stream: the one queued step that computes no keys."""
+        epoch, keys, bc, dc, cinf = self._prev
         self._prev = None
-        epoch = first_job // cfg.jobs_per_epoch
-        hits = self._queue(epoch, lambda: giant.probe_keys_flush(
-            keys, bc, dc, cinf, self.baby.rows, hit_cap=cfg.hit_cap),
-            streams=2)
-        return epoch, first_job, hits, cfg.jobs_span * cfg.jobs_per_epoch
+        return self._epoch_record(epoch, self._queue(
+            epoch, lambda: giant.probe_keys_flush(
+                keys, bc, dc, cinf, self.baby.rows,
+                hit_cap=self.cfg.hit_cap)))
 
     def _redispatch(self, q0, epoch: int, cap: int):
         """Overflow recovery: re-run one epoch with a larger hit buffer,

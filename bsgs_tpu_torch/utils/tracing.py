@@ -23,10 +23,11 @@ clock through an anchor, an event whose completion the host saw happen:
 - the event a span waited on (``anchor``): the caller's own event, which
   the span's wait blocked on; when the wait returns the event is
   complete, so the host time at the span's end places it;
-- the event ``begin_device`` records first where the stream has nothing
-  queued (``Stream.query()``): it completes as it is recorded. Such an
-  anchor is taken at most every ``IDLE_ANCHOR_S`` after the last one,
-  since each one places the pending events.
+- the event ``begin_device`` records first where the device's default
+  stream is current and has nothing queued (``Stream.query()``): it
+  completes as it is recorded. Such an anchor is taken at most every
+  ``IDLE_ANCHOR_S`` after the last one, since each one places the pending
+  events.
 
 The first covers a card that runs ahead of the host, the second a host
 that runs ahead of the card. Every bracket event is placed through its
@@ -35,8 +36,11 @@ recorder adds no synchronisation of its own, and never records, pools or
 re-records an event it was given. ``idle_gaps`` gives the device's gaps
 between consecutive brackets, each with the innermost host span at its
 midpoint. The gaps are idle where all the loop's device work lies inside
-brackets on one stream; idle time inside a bracket (the device catching
-up with the host within one epoch) is not seen.
+brackets; idle time inside a bracket (the device catching up with the
+host within one epoch) is not seen. Work on a second stream lies inside
+a bracket where it is fenced: forked from the bracket's stream after the
+bracket began (``fork_streams``) and joined back before it ends
+(``join_streams``).
 
 ``dump(path)`` writes a chrome trace (Perfetto opens it), host spans and
 device brackets on the same clock; ``report()`` gives the table that the
@@ -145,9 +149,10 @@ class Span:
 
     def begin_device(self, device) -> None:
         """Start this span's device bracket on ``device``'s current stream
-        (nothing on another device, or once begun). A span whose work runs
-        on more than one stream says so in its count ``streams``, which
-        makes idle_gaps refuse."""
+        (nothing on another device, or once begun). A span whose work
+        forks onto a second stream counts ``streams`` 2 (fork_streams),
+        which makes idle_gaps refuse unless it counts ``joined`` too
+        (join_streams)."""
         if self.device is None and getattr(device, "type", None) == "cuda":
             self.device = [None, None]
             self._bracket = device
@@ -213,6 +218,14 @@ class Recorder:
                 return s
         return None
 
+    def mark_streams(self, device, key: str, n: int) -> None:
+        """Set count ``key`` to ``n`` on each open span whose bracket began
+        on ``device``."""
+        for s in self._stack:
+            if s._bracket is not None and _index(s._bracket) == \
+                    _index(device):
+                s.counts = dict(s.counts or {}, **{key: n})
+
     # -- device events -------------------------------------------------
     def _record(self, device):
         """(device index, a pooled timing event recorded now on the
@@ -229,14 +242,17 @@ class Recorder:
 
     def _idle_anchor(self, device) -> None:
         """Anchor on an event recorded now where the device's current
-        stream has nothing queued (it completes as it is recorded), unless
-        the device's last anchor is under IDLE_ANCHOR_S old."""
+        stream is its default one and has nothing queued (it completes as
+        it is recorded), unless the device's last anchor is under
+        IDLE_ANCHOR_S old. A second stream that waits on another's event
+        may read as empty while its work is still held back."""
         import torch
 
         last = self._anchors.get(_index(device))
         if last is not None and time.perf_counter() - last[1] < IDLE_ANCHOR_S:
             return
-        if torch.cuda.current_stream(device).query():
+        cur = torch.cuda.current_stream(device)
+        if cur == torch.cuda.default_stream(device) and cur.query():
             idx, ev = self._record(device)
             self._take_anchor(idx, ev, True, time.perf_counter())
 
@@ -273,10 +289,10 @@ class Recorder:
                   hi: float = float("inf")) -> list:
         """(start, end, innermost host span at the midpoint) of each gap
         between consecutive device brackets, of the brackets that reach
-        into [lo, hi]. Raises
-        ValueError where a bracket there ran on more than one stream (a
-        cross-pipelined epoch probes on a second one, outside any bracket,
-        so its gaps are not known)."""
+        into [lo, hi], every stream's merged. Raises ValueError where a
+        bracket there forked a second stream (fork_streams) that it did not
+        join back (join_streams): work on that stream could then lie
+        outside every bracket, so the gaps are not known."""
         recs = self.records()
         brackets = []
         for s in recs:
@@ -285,11 +301,12 @@ class Recorder:
                 continue
             if d[1] < lo or d[0] > hi:
                 continue
-            if s.counts and s.counts.get("streams", 1) > 1:
+            if s.counts and s.counts.get("streams", 1) > 1 \
+                    and not s.counts.get("joined"):
                 raise ValueError(
                     f"span {s.name!r} queued device work on "
-                    f"{s.counts['streams']} streams: the gaps between "
-                    f"brackets of one stream do not say when the device "
+                    f"{s.counts['streams']} streams, not fenced: the gaps "
+                    f"between its brackets do not say when the device "
                     f"idled")
             brackets.append((d[0], d[1]))
         busy = _merge(brackets)
@@ -436,6 +453,23 @@ def begin_device(name: str, device) -> None:
         s = RECORDER.innermost(name)
         if s is not None:
             s.begin_device(device)
+
+
+def fork_streams(device) -> None:
+    """Count ``streams`` 2 on the open spans bracketed on ``device``, where
+    the caller forks a second stream from the current one (nothing while
+    the recorder is off)."""
+    if RECORDER.on:
+        RECORDER.mark_streams(device, "streams", 2)
+
+
+def join_streams(device) -> None:
+    """Count ``joined`` 1 on the open spans bracketed on ``device``, where
+    the caller joins the stream it forked back into the current one, so
+    the spans' brackets fence the second stream's work (nothing while the
+    recorder is off)."""
+    if RECORDER.on:
+        RECORDER.mark_streams(device, "joined", 1)
 
 
 def records() -> list:

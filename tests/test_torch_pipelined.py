@@ -131,6 +131,94 @@ def test_pipelined_solve_equals_the_direct_solve(baby):
     assert r1.key == pk + 4321 and r1.epochs == 1
 
 
+def test_pipelined_solve_queues_every_step_through_epoch(baby, monkeypatch):
+    """Each step the pipelined solve dispatches is one Solver._epoch call
+    (no hit_cap: in the pipeline), in epoch order; each call computes the
+    landing keys of its own epoch's centers M_g = Q0 - (g(2N+1) + N)*S*G,
+    once; the solve's key, drained records and callbacks equal the
+    direct solve's."""
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
+
+    piped = S.Solver(S.SolverConfig(cross_pipeline=True, **GEOM),
+                     baby=baby, device="cpu")
+    direct = S.Solver(S.SolverConfig(**GEOM), baby=baby, device="cpu")
+    cfg = piped.cfg
+    calls, dispatched, keyed = [], [], []
+    epoch, dispatch = piped._epoch, piped._dispatch
+
+    def counting_epoch(q0, e, hit_cap=None):
+        calls.append((e, hit_cap))
+        return epoch(q0, e, hit_cap)
+
+    def counting_dispatch(q0, e):
+        dispatched.append(e)
+        return dispatch(q0, e)
+
+    keys = EK.epoch_landing_keys_packed
+
+    def recording_keys(cx, *a, **kw):
+        keyed.append((calls[-1][0], cx.clone()))
+        return keys(cx, *a, **kw)
+
+    piped._epoch, piped._dispatch = counting_epoch, counting_dispatch
+    monkeypatch.setattr(EK, "epoch_landing_keys_packed", recording_keys)
+    pk = 1 << 20
+    k = pk + 2 * cfg.keys_per_epoch + 4321  # epoch 2
+    pke = pk + 4 * cfg.keys_per_epoch
+    got, res_p = _events(piped, ecpy.mul(k), pk, pke)
+    monkeypatch.undo()
+    want, res_d = _events(direct, ecpy.mul(k), pk, pke)
+    assert calls == [(e, None) for e in dispatched]
+    assert dispatched == list(range(len(dispatched))) and len(dispatched) > 2
+    assert [e for e, _ in keyed] == dispatched
+    q0 = ecpy.sub(ecpy.mul(k), ecpy.mul(pk))
+    t, n = cfg.jobs_per_epoch, cfg.n_offsets
+    for e, cx in keyed:
+        words = cx.numpy().astype(np.int64) & 0xFFFFFFFF  # (8, T)
+        xs = [sum(int(v) << (32 * i) for i, v in enumerate(words[:, c]))
+              for c in range(t)]
+        assert xs == [ecpy.sub(q0, ecpy.mul(
+            ((e * t + c) * cfg.jobs_span + n) * cfg.stride))[0]
+            for c in range(t)], e
+    assert res_p.key == res_d.key == k
+    assert (res_p.giant_steps, res_p.epochs, res_p.hits_checked) == (
+        res_d.giant_steps, res_d.epochs, res_d.hits_checked)
+    assert got == want and any(e[0] == "drain" and e[2] for e in got)
+
+
+def test_one_phase_and_the_layout_for_t_jobs(baby, monkeypatch):
+    """cross_pipeline makes SolverConfig.phases 1, so the chain layout is
+    checked for all T jobs: with EK.DIRECT_MAX at 8, chains of 2 x 4
+    lanes fit T/4 = 1 job a phase (4 totals) and not T = 4 (16 totals
+    want a fold, which takes lanes_w a multiple of 32). There the solver
+    keeps the fused epoch in its 4 direct phases, pipelining off, as
+    fused=True asks too, and finds the key; where T fits, it pipelines
+    in one phase."""
+    from bsgs_tpu_torch.ops import epoch_kernel as EK
+
+    assert S.SolverConfig(w=256, cross_pipeline=True,
+                          epoch_phases=4).phases == 1
+    assert S.SolverConfig(w=256, cross_pipeline=True,
+                          epoch_phases=4).direct_phases == 4
+    assert S.SolverConfig(w=256, epoch_phases=4).phases == 4
+    geo = dict(GEOM, epoch_phases=4)
+    piped = S.Solver(S.SolverConfig(cross_pipeline=True, **geo), baby=baby,
+                     device="cpu")
+    assert piped.fused and piped._pipelined and piped._phases == 1
+    monkeypatch.setattr(EK, "DIRECT_MAX", 8)
+    assert S.layout_fits(8, 1, 2, 4) and not S.layout_fits(8, 4, 2, 4)
+    direct = S.Solver(S.SolverConfig(**geo), baby=baby, device="cpu")
+    assert direct.fused and direct._phases == 4
+    for fused in (None, True):
+        piped = S.Solver(S.SolverConfig(cross_pipeline=True, fused=fused,
+                                        **geo), baby=baby, device="cpu")
+        assert piped.fused and not piped._pipelined and piped._phases == 4
+    pk = 1 << 20
+    k = pk + piped.cfg.keys_per_epoch + 99
+    assert piped.solve(ecpy.mul(k), pk, pk + 3 * piped.cfg.keys_per_epoch
+                       ).key == k
+
+
 def test_pipelined_overflow_reruns_the_epoch_outside_the_pipeline(baby):
     """A table of every landing prefix of epoch 0 floods a 4-slot buffer:
     the epoch is re-run directly with a larger one, every hit is

@@ -14,6 +14,8 @@ and a collect that leaves the epochs queued behind it running
 on the card). Imports torch and the port only."""
 
 import collections
+import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from bsgs_tpu_torch import cli
-from bsgs_tpu_torch.models import solver as S, table as T
+from bsgs_tpu_torch.models import giant as G, solver as S, table as T
 from bsgs_tpu_torch.ops import _cuda
 from bsgs_tpu_torch.utils import codecs, ecpy, tracing
 
@@ -170,6 +172,57 @@ def test_span_tree_of_a_rescan_solve(case, recorder, monkeypatch):
     for name in ("landings", "confirm"):
         (row,) = [ln for ln in table.splitlines() if ln.startswith(name)]
         assert f"fixed_muls={ran[name]}" in row
+
+
+# a pipelined step's spans sit in its epoch's launch; the flush's epoch
+# comes after the last dispatch, in the tail
+PIPELINED = dict(TREE, epoch=("solve", "tail"), probe=("launch",),
+                 keys=("launch",))
+
+
+def test_span_tree_of_a_pipelined_solve(case, recorder):
+    """A cross-pipelined solve, one found and one exhausted: each epoch
+    dispatched counts T, and its launch holds ``keys`` (T) and, past the
+    priming step, the ``probe`` of the previous step's 2TN + T keys; the
+    flush's epoch holds neither and, like every epoch on the CPU, counts
+    no second stream."""
+    cfg = dataclasses.replace(case["cfg"], cross_pipeline=True)
+    s = S.Solver(cfg, baby=case["solver"].baby, device="cpu")
+    assert s._pipelined and s._phases == 1
+    t, n = cfg.jobs_per_epoch, cfg.n_offsets
+    far = ecpy.mul(PK + (1 << 40))
+    for pub, pke, key in ((ecpy.mul(case["key"]), case["pke"], case["key"]),
+                          (far, PK + 3 * cfg.keys_per_epoch - 1, None)):
+        recorder.clear()
+        assert s.solve(pub, PK, pke).key == key
+        recs = recorder.records()
+        assert {"probe", "keys"} <= {r.name for r in recs} <= set(PIPELINED)
+        for r in recs:
+            assert r.parent in PIPELINED[r.name], r.name
+        ids = {r.id: r for r in recs}
+
+        def under(name, ep):
+            return [r for r in recs if r.name == name
+                    and ids[r.parent_id].parent_id == ep.id]
+
+        epochs = [r for r in recs if r.name == "epoch"]
+        dispatched = [r for r in epochs if r.counts]
+        assert [r.epoch for r in dispatched] == list(
+            range(len(dispatched)))
+        for i, ep in enumerate(dispatched):
+            (keys,) = under("keys", ep)
+            assert keys.counts == {"T": t}
+            probes = under("probe", ep)
+            assert len(probes) == (i > 0)
+            for p in probes:
+                assert p.counts == {"keys": 2 * t * n + t, "launches": 0}
+        flushes = [r for r in epochs if not r.counts]
+        assert len(flushes) <= 1 and (flushes or key is not None)
+        for ep in flushes:
+            assert ep.epoch == dispatched[-1].epoch
+            assert not under("probe", ep) and not under("keys", ep)
+        assert {tuple(r.counts) for r in dispatched} == {("T",)}
+        assert recorder.idle_gaps() == []
 
 
 def test_centers_carry_the_first_center(case, recorder):
@@ -350,24 +403,98 @@ def test_idle_gaps_on_synthetic_brackets():
     s.t0, s.t1, s.device = 3.0, 4.0, [3.0, 4.0]
     lone._ring.append(s)
     assert lone.idle_gaps() == [(1.0, 3.0, tracing.OUTSIDE)]
-    s.count("streams", 2)  # a cross-pipelined epoch: gaps not known
-    with pytest.raises(ValueError, match="streams"):
+    s.count("streams", 2)  # a second stream, not fenced: gaps not known
+    with pytest.raises(ValueError, match="not fenced"):
         lone.idle_gaps()
     assert "not known" in lone.report()
 
 
+def test_idle_gaps_merge_fenced_streams():
+    """A fenced two-stream epoch (counts ``streams`` 2, ``joined`` 1): its
+    children's brackets on either stream merge with it, one reaching past
+    its end; an unfenced one still refuses."""
+    rec = tracing.Recorder()
+
+    def add(name, dev, parent=None, **counts):
+        s = tracing.Span(rec, len(rec._ring) + 1, name, parent, None)
+        s.t0, s.t1, s.device = dev[0], dev[1], list(dev)
+        s.counts = counts or None
+        rec._ring.append(s)
+        return s
+
+    ep = add("epoch", (0.0, 1.0), streams=2, joined=1)
+    add("probe", (0.2, 0.9), ep)  # the second stream
+    add("keys", (0.1, 0.8), ep)
+    ep = add("epoch", (3.0, 4.0), streams=2, joined=1)
+    add("probe", (3.5, 4.5), ep)
+    add("epoch", (6.0, 7.0))
+    assert rec.idle_gaps() == [(1.0, 3.0, tracing.OUTSIDE),
+                               (4.5, 6.0, tracing.OUTSIDE)]
+    assert "device idle between brackets: 3500.0 ms" in rec.report()
+    ep.counts.pop("joined")
+    with pytest.raises(ValueError, match="not fenced"):
+        rec.idle_gaps()
+
+
+def test_fork_and_join_count_on_the_open_bracketed_spans(monkeypatch):
+    """fork_streams counts ``streams`` 2 and join_streams ``joined`` 1 on
+    the open spans bracketed on the device, and on no other; between the
+    two the bracket is not fenced, so idle_gaps refuses it once closed;
+    with the recorder off, nothing is counted."""
+    card = _FakeCard()
+    monkeypatch.setattr(torch.cuda, "Event", _FakeCard.Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: card)
+    monkeypatch.setattr(torch.cuda, "default_stream", lambda d=None: card)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    rec = tracing.Recorder()
+    monkeypatch.setattr(tracing, "RECORDER", rec)
+    dev = card.device
+    tracing.fork_streams(dev)  # off: nothing open, nothing counted
+    rec.on = True
+    for join in (False, True):
+        with tracing.span("epoch", 0) as ep:
+            ep.begin_device(dev)
+            with tracing.span("launch") as la:
+                tracing.fork_streams(dev)
+                if join:
+                    tracing.join_streams(dev)
+        assert la.counts is None
+        assert ep.counts == ({"streams": 2, "joined": 1} if join
+                             else {"streams": 2})
+        if join:
+            assert rec.idle_gaps() == []  # one bracket, merged
+        else:
+            with pytest.raises(ValueError, match="not fenced"):
+                rec.idle_gaps()
+            rec.clear()
+
+
 class _FakeCard:
-    """A card for the recorder's clock on the CPU: an event is stamped
-    with the host clock plus OFFSET when recorded and is done at once; the
-    current stream has nothing queued while ``idle``."""
+    """A card for the recorder's clock on the CPU, and a stream of it: an
+    event is stamped with the host clock plus OFFSET when recorded and is
+    done at once; the stream has nothing queued while ``idle``, keeps
+    the events recorded on it and counts its waits."""
 
     OFFSET = 1000.0
 
     def __init__(self):
         self.idle = True
+        self.device = torch.device("cuda", 0)
+        self.events, self.waits = [], 0
 
     def query(self):
         return self.idle
+
+    def wait_stream(self, other):
+        self.waits += 1
+
+    def wait_event(self, event):
+        self.waits += 1
+
+    def record_event(self):
+        ev = _FakeCard.Event()
+        ev.record(self)
+        return ev
 
     class Event:
         def __init__(self, enable_timing=False):
@@ -376,6 +503,8 @@ class _FakeCard:
         def record(self, stream=None):
             self.t = time.perf_counter() + _FakeCard.OFFSET
             self.records += 1
+            if stream is not None:
+                stream.events.append(self)
 
         def query(self):
             return self.t is not None
@@ -387,8 +516,11 @@ class _FakeCard:
 def test_device_clock_anchors_on_the_waited_event_and_idle_streams(
         monkeypatch):
     card = _FakeCard()
+    default = [card]
     monkeypatch.setattr(torch.cuda, "Event", _FakeCard.Event)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: card)
+    monkeypatch.setattr(torch.cuda, "default_stream",
+                        lambda d=None: default[0])
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     dev = torch.device("cuda", 0)
     rec = tracing.Recorder()
@@ -415,13 +547,85 @@ def test_device_clock_anchors_on_the_waited_event_and_idle_streams(
     time.sleep(tracing.IDLE_ANCHOR_S)
     epoch(3)  # idle again: the recorder's own anchor
     assert rec._anchors[0][0] is not mine and rec._anchors[0][2]
+    ours = rec._anchors[0]
+    default[0] = _FakeCard()
+    time.sleep(tracing.IDLE_ANCHOR_S)
+    epoch(4)  # idle, but not the default stream: no anchor
+    assert rec._anchors[0] is ours
     # the caller's event is never pooled nor recorded again
     assert mine not in rec._pool and mine.records == 1
     brackets = [r for r in rec.records() if r.device is not None]
-    assert [r.epoch for r in brackets] == [0, 1, 2, 3]
+    assert [r.epoch for r in brackets] == [0, 1, 2, 3, 4]
     for r in brackets:  # placed on the host clock, within the anchors' error
         d0, d1 = r.device
         assert r.t0 - 1e-3 <= d0 <= d1 <= r.t1 + 1e-3, (r.epoch, r.device)
+
+
+def test_pipelined_step_brackets_both_streams_on_a_fake_card(
+        case, monkeypatch):
+    """Two pipelined steps, each inside an epoch bracketed on the fake
+    card's main stream: the priming step records ``keys`` alone; the next
+    forks, its ``probe`` bracketed on the second stream (not the default
+    one: no idle anchor there) inside its epoch's bracket, ``keys`` on the
+    main one, and the epoch counts the fork and the join, so idle_gaps
+    merges the streams. The recorder
+    adds no wait: each stream waits once, as the step itself asks."""
+    cfg = dataclasses.replace(case["cfg"], cross_pipeline=True)
+    s = S.Solver(cfg, baby=case["solver"].baby, device="cpu")
+    q0 = ecpy.sub(ecpy.mul(case["key"]), ecpy.mul(PK))
+    centers = [s._centers_on_device(q0, e * cfg.jobs_per_epoch)
+               for e in (0, 1)]
+    main, side = _FakeCard(), _FakeCard()
+    current = [main]
+
+    @contextlib.contextmanager
+    def on(stream):
+        current[0], was = stream, current[0]
+        try:
+            yield
+        finally:
+            current[0] = was
+
+    monkeypatch.setattr(torch.cuda, "Event", _FakeCard.Event)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: current[0])
+    monkeypatch.setattr(torch.cuda, "default_stream", lambda d=None: main)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "stream", on)
+    monkeypatch.setattr(torch.Tensor, "record_stream", lambda t, st: None)
+    monkeypatch.setattr(G, "_fork", lambda dev: (main, side))
+    rec = tracing.Recorder()
+    rec.on = True
+    monkeypatch.setattr(tracing, "RECORDER", rec)
+    kw = dict(htsz=cfg.htsz, chunk_c=cfg.chunk_c, lanes_w=cfg.lanes_w,
+              hit_cap=cfg.hit_cap)
+    planes = (s.ox_pk, s.oy_pk, s.baby.rows)
+    out = (None,) * 3
+    for e, (cx, cy, cinf) in enumerate(centers):
+        with rec.open("epoch", e) as sp:
+            sp.begin_device(main.device)
+            out = G.pipelined_step(*out[:3], centers[0][2] if e else None,
+                                   e > 0, cx, cy, *planes, **kw)
+    assert (main.waits, side.waits) == (1, 1)
+    # the probe's bracket and the join's event; the anchor is main's
+    assert len(side.events) == 3 and current == [main]
+    assert rec._anchors[0][0] in main.events
+    recs = rec.records()
+    by = {n: [r for r in recs if r.name == n]
+          for n in ("epoch", "probe", "keys")}
+    t, n = cfg.jobs_per_epoch, cfg.n_offsets
+    assert [r.counts for r in by["epoch"]] == [
+        None, {"streams": 2, "joined": 1}]
+    assert [r.epoch for r in by["keys"]] == [0, 1]
+    assert {r.counts["T"] for r in by["keys"]} == {t}
+    (probe,) = by["probe"]
+    assert probe.epoch == 1 and probe.parent == "epoch"
+    assert probe.counts == {"keys": 2 * t * n + t, "launches": 0}
+    for r in recs:
+        (ep,) = [q for q in by["epoch"] if q.epoch == r.epoch]
+        assert None not in r.device, r.name
+        assert ep.device[0] <= r.device[0] <= r.device[1] <= ep.device[1]
+    assert len(rec.idle_gaps()) == 1
 
 
 def test_dump_writes_a_chrome_trace(tmp_path):
